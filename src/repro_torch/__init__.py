@@ -1,0 +1,17 @@
+"""FULL-W2V in PyTorch with hand-written CUDA kernels for Hopper.
+
+A port of the JAX package ``repro`` that stays beside it as the reference.
+This package imports ``torch``, numpy and the standard library only — never
+``jax`` and never ``repro`` — and mirrors the reference's module names:
+
+configs/w2v.py   — ``W2VConfig`` (copied verbatim)
+data/            — host batching (numpy copies: bit-identical batches/plans)
+core/sgns.py     — the window math in torch
+core/trainer.py  — ``TrainSession`` over ``kernels.ops.step``
+core/quality.py  — planted-cluster quality metrics (numpy copy)
+kernels/         — plain torch versions, CUDA kernels, registry, ``step``
+convert.py       — start from the reference's tables
+launch/train.py  — ``python -m repro_torch.launch.train w2v``
+
+Entry points run on the GPU unless the caller asks for the CPU.
+"""

@@ -1,0 +1,122 @@
+"""The port's training session against the reference's: three batches from
+the same tables (``params_from_reference``) agree within the kernel
+tolerance at T=1 and at T=8; the session refuses to fall back to the CPU
+silently; the CLI runs end to end on the CPU."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.w2v import smoke as ref_smoke
+from repro.core.trainer import TrainSession as RefSession
+from repro.data.batching import BatchingPipeline as RefPipeline
+from repro_torch.configs.w2v import smoke
+from repro_torch.convert import params_from_reference
+from repro_torch.core.trainer import TrainSession
+from repro_torch.data.batching import BatchingPipeline
+from repro_torch.data.corpus import synthetic_cluster_corpus
+from tests.conftest import REPO, SRC
+
+TOL = dict(atol=2e-5, rtol=1e-4)
+
+
+def _cfg_kw(tile):
+    return dict(dim=64, window=5, negatives=5, sentences_per_batch=12,
+                max_sentence_len=24, tile_windows=tile, tile_gemm_windows=4,
+                epochs=1, seed=2)
+
+
+def _corpus():
+    return synthetic_cluster_corpus(n_clusters=4, words_per_cluster=24,
+                                    n_sentences=60, mean_len=12, seed=3)
+
+
+@pytest.mark.parametrize("tile,ref_backend", [(1, "jnp"), (8, "jnp_tiled")])
+def test_three_batches_match_reference_session(tile, ref_backend):
+    corpus = _corpus()
+    ref = RefSession(RefPipeline(corpus, ref_smoke(**_cfg_kw(tile))),
+                     ref_smoke(**_cfg_kw(tile)), backend=ref_backend)
+    cfg = smoke(**_cfg_kw(tile))
+    port = TrainSession(BatchingPipeline(corpus, cfg), cfg, device="cpu")
+    assert port.backend == ("torch" if tile == 1 else "torch_tiled")
+    params = {k: np.asarray(v) for k, v in ref.state.params().items()}
+    port.state = params_from_reference(params, "cpu")
+
+    ref_m = list(ref.stream(max_batches=3))
+    port_m = list(port.stream(max_batches=3))
+    assert [m.words_seen for m in port_m] == [m.words_seen for m in ref_m]
+    assert [m.lr for m in port_m] == [m.lr for m in ref_m]
+    for name in ("w_in", "w_out"):
+        want = np.asarray(ref.state.params()[name])
+        got = port.state.params()[name].numpy()
+        np.testing.assert_allclose(got, want, **TOL)
+        assert np.abs(got - params[name]).max() > 1e-4     # it trained
+    np.testing.assert_allclose(port.embeddings(), np.asarray(ref.state.w_in),
+                               **TOL)
+
+
+def test_session_without_device_raises_when_cuda_is_missing(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = smoke()
+    pipe = BatchingPipeline(_corpus(), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainSession(pipe, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrainSession(pipe, cfg, device="cuda")
+
+
+def test_cuda_backend_on_cpu_session_raises():
+    cfg = smoke()
+    with pytest.raises(ValueError, match="only on the GPU"):
+        TrainSession(BatchingPipeline(_corpus(), cfg), cfg, backend="cuda",
+                     device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(mesh=object()),
+                                dict(ckpt_dir="ckpt"),
+                                dict(cfg_tables="hot=bf16"),
+                                dict(cfg_tables="cold=int8,shards=2")])
+def test_later_slice_features_raise(kw):
+    cfg = smoke(tables=kw.pop("cfg_tables", ""))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        TrainSession(BatchingPipeline(_corpus(), cfg), cfg, device="cpu",
+                     **kw)
+
+
+def test_params_from_reference_validates():
+    good = {"w_in": np.zeros((4, 8), np.float32),
+            "w_out": np.ones((4, 8), np.float32)}
+    st = params_from_reference(good, "cpu")
+    assert st.w_out.dtype == torch.float32 and st.w_out.sum() == 32
+    with pytest.raises(ValueError, match="w_out"):
+        params_from_reference({"w_in": good["w_in"]}, "cpu")
+    with pytest.raises(ValueError, match="float32"):
+        params_from_reference({**good, "w_in": good["w_in"].astype(
+            np.float64)}, "cpu")
+
+
+def _cli(*args):
+    env = dict(os.environ, PYTHONPATH=SRC)
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "w2v", *args],
+        env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
+
+
+@pytest.mark.parametrize("tile", ["1", "8"])
+def test_cli_runs_on_cpu(tile):
+    out = _cli("--device", "cpu", "--vocab", "128", "--clusters", "8",
+               "--sentences", "80", "--sentences-per-batch", "16",
+               "--max-batches", "3", "--epochs", "1", "--tile-windows", tile)
+    assert out.returncode == 0, out.stderr
+    want = "backend=torch " if tile == "1" else "backend=torch_tiled "
+    assert want in out.stdout
+    for key in ("throughput:", "final_digest=", "quality:"):
+        assert key in out.stdout, out.stdout
+
+
+def test_cli_rejects_later_slice_flags():
+    out = _cli("--device", "cpu", "--workload", "doc2vec")
+    assert out.returncode == 2 and "later slice" in out.stderr
