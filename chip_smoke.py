@@ -10,20 +10,26 @@ non-zero):
 
 1. device   — the card's name and power limit (nvidia-smi).
 2. build    — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``.
-3. parity   — ``cuda``, ``cuda_pipelined`` and ``cuda_tiled`` (T=8, G=4,
-              some strict tiles) against their plain versions on the card
-              (atol 2e-5, rtol 1e-4, the JAX package's kernel tolerance);
-              K2 == K1 and K3(T=1) == K1 bit for bit.
+3. parity   — ``cuda``, ``cuda_pipelined``, ``cuda_tiled`` (T=8, G=4,
+              some strict tiles) and ``cuda_tiled_fused`` (K4, the same
+              batch on the table split at hot=V/4) against their plain
+              versions on the card (atol 2e-5, rtol 1e-4, the JAX
+              package's kernel tolerance); K2 == K1, K3(T=1) == K1 and
+              K4 == K3 on concat(hot, got) bit for bit.
 4. trainer  — ``TrainSession`` with ``backend="auto"`` on the card at the
               paper's width (d=128, W=5, N=5, S=10,000 sentences per batch,
               65,536-word cluster corpus, 3 batches): T=1 must resolve to
               ``cuda_pipelined``, T=8 to ``cuda_tiled``; a third run asks
-              for ``cuda`` by name. Launch counts are zeroed before each run
-              and read after it.
+              for ``cuda`` by name; a fourth shards the vocabulary (one
+              shard, T=8) and must launch K4 once per batch and K3 never,
+              and end with embeddings bit-identical to the replicated T=8
+              run's. Launch counts are zeroed before each run and read
+              after it.
 5. timing   — each kernel on the trainer's first batch (the main path's
-              shapes) against its plain version on the same inputs, then
-              timed (CUDA events) beside its bound and the plain version's
-              time; one JSON line lists them.
+              shapes; for K4 the sharded run's first batch, with the
+              exchange timed apart) against its plain version on the same
+              inputs, then timed (CUDA events) beside its bound and the
+              plain version's time; one JSON line lists them.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the repository's ``src/`` beside it, the script fails before
@@ -194,6 +200,19 @@ def phase_parity(torch, np, seed):
     k3 = fullw2v.fullw2v_cuda_tiled(*tables(), *idx, lr, w_f, tile, *p8,
                                     gemm_windows=G)
     k3_t1 = fullw2v.fullw2v_cuda_tiled(*tables(), *idx, lr, w_f, 1, *p1)
+    # K4 on the same batch, the table split at hot = V/4 so that rows come
+    # from both sides: ids below hot from hot_*, the rest from got_*
+    hot = inp["w_in"].shape[0] // 4
+
+    def split():
+        w_in, w_out = tables()
+        return (w_in[:hot].clone(), w_out[:hot].clone(), w_in[hot:].clone(),
+                w_out[hot:].clone())
+
+    plain_fused = ref.batch_sgns_tiled_fused_ref(*split(), *idx, lr, w_f,
+                                                 tile, *p8, gemm_windows=G)
+    k4 = fullw2v.fullw2v_cuda_tiled_fused(*split(), *idx, lr, w_f, tile, *p8,
+                                          gemm_windows=G)
     torch.cuda.synchronize()
 
     errs = {}
@@ -205,11 +224,22 @@ def phase_parity(torch, np, seed):
                                       want[1]))
         _line("parity", kernel=name, max_abs_err=f"{errs[name]:.3e}",
               atol=ATOL, rtol=RTOL)
+    errs["cuda_tiled_fused"] = max(
+        _check_close(torch, f"cuda_tiled_fused {part}", got, want)
+        for part, got, want in zip(("hot_in", "hot_out", "got_in", "got_out"),
+                                   k4, plain_fused))
+    _line("parity", kernel="cuda_tiled_fused", hot=hot,
+          max_abs_err=f"{errs['cuda_tiled_fused']:.3e}", atol=ATOL, rtol=RTOL)
     for name, got in (("cuda_pipelined", k2), ("cuda_tiled(T=1)", k3_t1)):
         same = torch.equal(got[0], k1[0]) and torch.equal(got[1], k1[1])
         if not same:
             raise AssertionError(f"{name} is not bit-identical to cuda")
         _line("parity", bitwise=f"{name}==cuda")
+    if not (torch.equal(torch.cat([k4[0], k4[2]]), k3[0])
+            and torch.equal(torch.cat([k4[1], k4[3]]), k3[1])):
+        raise AssertionError("cuda_tiled_fused is not bit-identical to "
+                             "cuda_tiled on concat(hot, got)")
+    _line("parity", bitwise="cuda_tiled_fused==cuda_tiled(concat)")
     moved = float((k1[0] - tens(inp["w_in"])).abs().max())
     if moved < 1e-4:
         raise AssertionError(f"cuda left w_in unchanged (max delta {moved})")
@@ -232,10 +262,15 @@ def phase_parity(torch, np, seed):
         plain_ms=timing["cuda"]["plain_ms"],
         small_ms=_time_ms(torch, lambda: fullw2v.fullw2v_cuda(
             *tables(), *idx, lr, w_f, pipeline=True), 3))
+    timing["cuda_tiled_fused"] = dict(
+        plain_ms=_host_ms(torch, lambda: ref.batch_sgns_tiled_fused_ref(
+            *split(), *idx, lr, w_f, tile, *p8, gemm_windows=G)),
+        small_ms=_time_ms(torch, lambda: fullw2v.fullw2v_cuda_tiled_fused(
+            *split(), *idx, lr, w_f, tile, *p8, gemm_windows=G), 3))
     return errs, timing
 
 
-def make_pipeline(args, tile: int):
+def make_pipeline(args, tile: int, **shard):
     from repro_torch.configs.w2v import W2VConfig
     from repro_torch.data.batching import BatchingPipeline
     from repro_torch.data.corpus import synthetic_cluster_corpus
@@ -243,20 +278,21 @@ def make_pipeline(args, tile: int):
     cfg = W2VConfig(dim=128, window=5, negatives=5, epochs=1, min_count=1,
                     subsample_t=0.0, sentences_per_batch=args.S,
                     max_sentence_len=64, tile_windows=tile,
-                    tile_gemm_windows=4, seed=args.seed)
+                    tile_gemm_windows=4, seed=args.seed, **shard)
     corpus = synthetic_cluster_corpus(
         n_clusters=64, words_per_cluster=65536 // 64,
         n_sentences=args.S * args.batches, mean_len=24, seed=args.seed)
     return BatchingPipeline(corpus, cfg), cfg, corpus
 
 
-def phase_trainer(torch, np, args, tile: int, backend: str, expect: str):
-    """One main-path run; returns (pipeline, cfg, launches, seconds/step)."""
+def phase_trainer(torch, np, args, tile: int, backend: str, expect: str,
+                  **shard):
+    """One main-path run; returns (session, launches, seconds/step)."""
     from repro_torch.core.quality import evaluate
     from repro_torch.core.trainer import TrainSession
     from repro_torch.kernels import fullw2v
 
-    pipe, cfg, corpus = make_pipeline(args, tile)
+    pipe, cfg, corpus = make_pipeline(args, tile, **shard)
     sess = TrainSession(pipe, cfg, backend=backend, device="cuda")
     if sess.backend != expect:
         raise AssertionError(f"backend={backend!r} at T={tile} resolved to "
@@ -266,8 +302,10 @@ def phase_trainer(torch, np, args, tile: int, backend: str, expect: str):
     sess.train(max_batches=args.batches)
     launches = dict(fullw2v.LAUNCHES)
     batches = sess.state.batches_seen
-    if launches[expect] != batches or batches != args.batches:
-        raise AssertionError(f"{expect}: {launches[expect]} launches for "
+    kernel = "cuda_tiled_fused" if sess.placement is not None else expect
+    others = {k: v for k, v in launches.items() if k != kernel and v}
+    if launches[kernel] != batches or batches != args.batches or others:
+        raise AssertionError(f"{kernel}: {launches[kernel]} launches for "
                              f"{batches} batches ({launches})")
     for name, t in sess.state.params().items():
         if not bool(torch.isfinite(t).all()):
@@ -279,12 +317,115 @@ def phase_trainer(torch, np, args, tile: int, backend: str, expect: str):
         inv[i] = corpus.clusters[w]
     q = evaluate(sess.embeddings(), inv)
     step_s = sess.wall_seconds / batches
+    extra = {}
+    if sess.placement is not None:
+        extra = dict(kernel=kernel, hot=sess.placement.hot,
+                     cold=sess.placement.cold,
+                     hot_vocab_frac=cfg.hot_vocab_frac)
     _line("trainer", T=tile, backend=sess.backend, S=cfg.sentences_per_batch,
           batches=batches, words_per_s=f"{sess.words_per_sec:.0f}",
-          s_per_step=f"{step_s:.4f}", launches=launches[expect],
+          s_per_step=f"{step_s:.4f}", launches=launches[kernel],
           separation=f"{q['separation']:.4f}",
-          nn_purity=f"{q['nn_purity']:.4f}")
-    return pipe, cfg, launches[expect], step_s
+          nn_purity=f"{q['nn_purity']:.4f}", **extra)
+    return sess, launches[kernel], step_s
+
+
+def sharded_hot_frac(np, pipe) -> float:
+    """The sharded phase's hot_vocab_frac: 0 (the 90 % coverage head)
+    unless fewer than 10 % of the first batch's distinct rows are then
+    cold, else 0.25. ``pipe`` is the replicated run's pipeline (the same
+    corpus and batches)."""
+    from repro_torch.distributed.vocab_placement import (VocabPlacement,
+                                                         plan_exchange)
+
+    batch = next(pipe.batches(pad_len=pipe.cfg.resolved_pad_len, epoch=0))
+    ex = plan_exchange(batch, VocabPlacement.plan(pipe.vocab.counts, 1))
+    distinct = np.unique(np.concatenate([batch.tokens.ravel(),
+                                         batch.negs.ravel()])).size
+    share = ex.n_distinct[0] / distinct
+    frac = 0.0 if share >= 0.1 else 0.25
+    _line("trainer", sharded="cold share of distinct rows",
+          cold_rows=ex.n_distinct[0], distinct_rows=distinct,
+          share=f"{share:.4f}", hot_vocab_frac=frac)
+    return frac
+
+
+def phase_sharded_shape(torch, np, sess, step_s):
+    """K4 on the sharded session's first batch: held against its plain
+    version and timed (CUDA events) beside its bound; the exchange (route,
+    gather and write-back of both tables) timed apart; the kernel's share
+    of the trainer's step."""
+    from repro_torch.distributed.vocab_placement import plan_exchange
+    from repro_torch.kernels import fullw2v, ops, ref
+
+    pipe, cfg, pl = sess.pipeline, sess.cfg, sess.placement
+    batch = next(pipe.batches(pad_len=cfg.resolved_pad_len, epoch=0))
+    ex = batch.exchange if batch.exchange is not None else \
+        plan_exchange(batch, pl)
+    step = ex.step_inputs(cfg.lr, torch.device("cuda"))
+    static = ops.static_for(cfg, step.tile)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape = (pipe.table_rows, cfg.dim)
+    full = [((torch.rand(shape, generator=gen, device="cuda") - 0.5)
+             / cfg.dim).cpu().numpy() for _ in range(2)]
+    (hot_in, cold_in), (hot_out, cold_out) = (
+        [torch.from_numpy(a).cuda() for a in pl.split(t)] for t in full)
+    run = ops._VocabShardedRun("cuda_tiled", static, pl, exchange="exact")
+    route = run.route(step)
+    got_in, got_out = run.gather(route, cold_in), run.gather(route, cold_out)
+    args = (step.tokens, step.negs, step.lengths, step.lr, static.w_f,
+            static.tile, step.plan_uniq, step.plan_scatter, step.plan_ucount,
+            step.plan_strict)
+
+    def tables():
+        return (hot_in.clone(), hot_out.clone(), got_in.clone(),
+                got_out.clone())
+
+    want = tables()
+    plain_ms = _host_ms(torch, lambda: ref.batch_sgns_tiled_fused_ref(
+        *want, *args, gemm_windows=static.gemm_windows))
+    got = tables()
+    fullw2v.fullw2v_cuda_tiled_fused(*got, *args,
+                                     gemm_windows=static.gemm_windows)
+    torch.cuda.synchronize()
+    err = max(_check_close(torch, f"cuda_tiled_fused {part} (main shape)",
+                           g, w)
+              for part, g, w in zip(("hot_in", "hot_out", "got_in",
+                                     "got_out"), got, want))
+    ms = _time_ms(torch, lambda: fullw2v.fullw2v_cuda_tiled_fused(
+        *got, *args, gemm_windows=static.gemm_windows), 2)
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        raise AssertionError("cuda_tiled_fused: timing runs produced "
+                             "non-finite tables")
+
+    def exchange():
+        r = run.route(step)
+        new_in, new_out = run.gather(r, cold_in), run.gather(r, cold_out)
+        run.write_back(r, cold_in, new_in)
+        run.write_back(r, cold_out, new_out)
+
+    exchange_ms = _time_ms(torch, exchange, 5)
+    p = ex
+    extra = (p.plan_uniq.nbytes + p.plan_scatter.nbytes
+             + p.plan_ucount.nbytes + p.plan_strict.nbytes)
+    # rows counted in the working table's space: hot and got rows alike
+    b_ms, b_by = bound(np, ex.tokens, ex.negs, ex.lengths, cfg.dim,
+                       cfg.fixed_window, extra)
+    share = ms / (step_s * 1e3)
+    out = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b_ms,
+               bound_by=b_by, windows=int(batch.lengths.sum()),
+               S=int(batch.tokens.shape[0]), exchange_ms=exchange_ms,
+               hot=pl.hot, R=ex.request_width, cold_rows=ex.n_distinct[0],
+               step_share=share)
+    _line("main-shape", kernel="cuda_tiled_fused", S=out["S"],
+          L=int(batch.tokens.shape[1]), hot=pl.hot, R=ex.request_width,
+          cold_rows=ex.n_distinct[0], max_abs_err=f"{err:.3e}",
+          plain_ms=f"{plain_ms:.1f}")
+    _line("timing", kernel="cuda_tiled_fused", ms_per_launch=f"{ms:.3f}",
+          launches_per_step=1, bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+          windows=out["windows"], exchange_ms=f"{exchange_ms:.3f}",
+          kernel_share_of_step=f"{share:.3f}")
+    return out
 
 
 def phase_main_shape(torch, np, pipe, cfg, names):
@@ -391,33 +532,50 @@ def main(argv=None) -> int:
     # 3. kernels vs plain versions on the card
     errs, small = phase_parity(torch, np, args.seed)
 
-    # 4. the main path: TrainSession, auto backend, then cuda by name
-    pipe1, cfg1, n_pipe, s_pipe = phase_trainer(
+    # 4. the main path: TrainSession, auto backend, then cuda by name, then
+    # the vocab-sharded session (K4)
+    sess1, n_pipe, s_pipe = phase_trainer(
         torch, np, args, 1, "auto", "cuda_pipelined")
     while s_pipe > 60 and args.S >= 2:      # keep the run inside its limit
         args.S //= 2
         _line("trainer", note="ordered step over 60 s", S_halved_to=args.S)
-        pipe1, cfg1, n_pipe, s_pipe = phase_trainer(
+        sess1, n_pipe, s_pipe = phase_trainer(
             torch, np, args, 1, "auto", "cuda_pipelined")
-    pipe8, cfg8, n_tiled, s_tiled = phase_trainer(
+    sess8, n_tiled, s_tiled = phase_trainer(
         torch, np, args, 8, "auto", "cuda_tiled")
-    _, _, n_seq, s_seq = phase_trainer(torch, np, args, 1, "cuda", "cuda")
+    _, n_seq, s_seq = phase_trainer(torch, np, args, 1, "cuda", "cuda")
+    frac = sharded_hot_frac(np, sess8.pipeline)
+    sess_vs, n_fused, s_fused = phase_trainer(
+        torch, np, args, 8, "auto", "cuda_tiled", vocab_shard=True,
+        hot_vocab_frac=frac)
+    if not np.array_equal(sess_vs.embeddings(), sess8.embeddings()):
+        raise AssertionError("the one-shard vocab-sharded session's "
+                             "embeddings differ from the replicated "
+                             "cuda_tiled session's")
+    _line("trainer", bitwise="vocab_shard(1 shard)==replicated cuda_tiled")
     launches = {"cuda": n_seq, "cuda_pipelined": n_pipe,
-                "cuda_tiled": n_tiled}
-    step_s = {"cuda": s_seq, "cuda_pipelined": s_pipe, "cuda_tiled": s_tiled}
+                "cuda_tiled": n_tiled, "cuda_tiled_fused": n_fused}
+    step_s = {"cuda": s_seq, "cuda_pipelined": s_pipe, "cuda_tiled": s_tiled,
+              "cuda_tiled_fused": s_fused}
 
     # 5. each kernel at the trainer's batch shape: parity, then time
-    timing = phase_main_shape(torch, np, pipe1, cfg1,
+    timing = phase_main_shape(torch, np, sess1.pipeline, sess1.cfg,
                               ["cuda", "cuda_pipelined"])
-    timing.update(phase_main_shape(torch, np, pipe8, cfg8, ["cuda_tiled"]))
+    timing.update(phase_main_shape(torch, np, sess8.pipeline, sess8.cfg,
+                                   ["cuda_tiled"]))
+    timing["cuda_tiled_fused"] = phase_sharded_shape(torch, np, sess_vs,
+                                                     s_fused)
     sources = {"cuda": ("_kernel", "src/repro/kernels/fullw2v.py:284"),
                "cuda_pipelined": ("_kernel_pipelined",
                                   "src/repro/kernels/fullw2v.py:376"),
                "cuda_tiled": ("_kernel_tiled",
-                              "src/repro/kernels/fullw2v.py:537")}
+                              "src/repro/kernels/fullw2v.py:537"),
+               "cuda_tiled_fused": ("_kernel_tiled (hot_rows>0) via "
+                                    "fullw2v_pallas_tiled_fused",
+                                    "src/repro/kernels/fullw2v.py:1078")}
     kernels = []
-    for name in ("cuda", "cuda_pipelined", "cuda_tiled"):
-        kernels.append({
+    for name in ("cuda", "cuda_pipelined", "cuda_tiled", "cuda_tiled_fused"):
+        row = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fullw2v.cu",
             "replaces": sources[name][1], "replaces_fn": sources[name][0],
@@ -435,7 +593,11 @@ def main(argv=None) -> int:
             "windows_per_launch": timing[name]["windows"],
             "sentences_per_batch": timing[name]["S"],
             "small_shape": "S=8 L=96 V=4096 d=128 N=5 W_f=3",
-        })
+        }
+        if name == "cuda_tiled_fused":
+            row.update({k: timing[name][k] for k in (
+                "exchange_ms", "hot", "R", "cold_rows", "step_share")})
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

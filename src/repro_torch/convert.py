@@ -14,25 +14,35 @@ import torch
 
 from repro_torch.core.trainer import TrainState
 
+_REPLICATED = ("w_in", "w_out")
+_SPLIT = ("hot_in", "hot_out", "cold_in", "cold_out")
+
 
 def params_from_reference(params: Mapping[str, np.ndarray],
                           device) -> TrainState:
     """A fresh :class:`TrainState` on ``device`` holding copies of the
-    reference's replicated f32 tables ``{"w_in", "w_out"}`` (progress
-    counters at zero)."""
-    missing = {"w_in", "w_out"} - set(params)
+    reference's f32 tables (progress counters at zero): the replicated
+    tree ``{"w_in", "w_out"}`` or the vocab-sharded split tree
+    ``{"hot_in", "hot_out", "cold_in", "cold_out"}``."""
+    names = _SPLIT if "hot_in" in params else _REPLICATED
+    missing = set(names) - set(params)
     if missing:
         raise ValueError(
             f"params lacks {sorted(missing)}; expected the reference's "
-            f"replicated TrainState.params() (vocab-sharded tables arrive "
-            f"with a later slice of the torch port)")
-    w_in, w_out = (np.asarray(params[k]) for k in ("w_in", "w_out"))
-    if w_in.dtype != np.float32 or w_out.dtype != np.float32:
-        raise ValueError(f"expected float32 tables, got {w_in.dtype} and "
-                         f"{w_out.dtype}")
-    if w_in.ndim != 2 or w_in.shape != w_out.shape:
-        raise ValueError(f"expected two (V, d) tables, got {w_in.shape} and "
-                         f"{w_out.shape}")
-    return TrainState(
-        w_in=torch.tensor(w_in, dtype=torch.float32, device=device),
-        w_out=torch.tensor(w_out, dtype=torch.float32, device=device))
+            f"TrainState.params(): {{{', '.join(_REPLICATED)}}} "
+            f"(replicated) or {{{', '.join(_SPLIT)}}} (vocab-sharded)")
+    arrays = [np.asarray(params[k]) for k in names]
+    if any(a.dtype != np.float32 for a in arrays):
+        raise ValueError(f"expected float32 tables, got "
+                         f"{[str(a.dtype) for a in arrays]}")
+    pairs = list(zip(arrays[0::2], arrays[1::2]))   # (in, out) per table
+    if any(a.ndim != 2 or a.shape != b.shape for a, b in pairs) or \
+            len({a.shape[1] for a in arrays}) != 1:
+        raise ValueError(f"expected (rows, d) in/out pairs of one d, got "
+                         f"{[a.shape for a in arrays]}")
+    put = [torch.tensor(a, dtype=torch.float32, device=device)
+           for a in arrays]
+    if names == _REPLICATED:
+        return TrainState(w_in=put[0], w_out=put[1])
+    return TrainState(w_in=put[0], w_out=put[1], cold_in=put[2],
+                      cold_out=put[3])

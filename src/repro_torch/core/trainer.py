@@ -9,9 +9,12 @@ combinations — unknown backend, a CUDA kernel on the CPU — fail fast.
 
 The session runs on the GPU unless the caller passes ``device="cpu"``:
 with ``device=None`` and no GPU it raises rather than quietly running the
-plain versions on the CPU. Checkpoints, data-parallel meshes, vocab
-sharding, mixed-precision tables and supervised recovery arrive with later
-slices of the port and raise until then.
+plain versions on the CPU. ``cfg.vocab_shard`` splits the tables into a
+replicated hot head and a cold tail on one shard (DESIGN.md §8), with the
+row exchange planned per batch by ``repro_torch.distributed
+.vocab_placement``. Checkpoints, data-parallel meshes (and with them more
+than one vocab shard), mixed-precision tables and supervised recovery
+arrive with later slices of the port and raise until then.
 """
 from __future__ import annotations
 
@@ -32,17 +35,28 @@ from repro_torch.kernels.tables import Tables
 
 @dataclasses.dataclass
 class TrainState:
-    """Training state: the ``(V, d)`` float32 tables (updated in place by
-    every step) + progress counters."""
+    """Training state: float32 tables (updated in place by every step) +
+    progress counters.
+
+    Replicated sessions hold the full ``(V, d)`` tables in ``w_in`` /
+    ``w_out``. Vocab-sharded sessions hold the replicated hot head there
+    instead, plus the striped cold tail in ``cold_in`` / ``cold_out``
+    (``(cold_pad, d)``, DESIGN.md §8)."""
     w_in: torch.Tensor
     w_out: torch.Tensor
     words_seen: int = 0
     batches_seen: int = 0
     epoch: int = 0
     epoch_batch: int = 0   # batches completed within the current epoch
+    cold_in: Optional[torch.Tensor] = None    # vocab-sharded cold tail
+    cold_out: Optional[torch.Tensor] = None
 
     def params(self) -> Dict[str, torch.Tensor]:
-        """The table dict, named as the reference's ``TrainState.params``."""
+        """The table dict, named as the reference's ``TrainState.params``
+        (split names when vocab-sharded)."""
+        if self.cold_in is not None:
+            return {"hot_in": self.w_in, "hot_out": self.w_out,
+                    "cold_in": self.cold_in, "cold_out": self.cold_out}
         return {"w_in": self.w_in, "w_out": self.w_out}
 
 
@@ -81,19 +95,28 @@ def resolve_device(device) -> torch.device:
 
 
 def init_state(vocab_size: int, cfg: W2VConfig, seed: int = 0,
-               device="cpu") -> TrainState:
+               device="cpu", placement=None) -> TrainState:
     """Mikolov init: w_in ~ U(-0.5/d, 0.5/d), w_out = 0, drawn from a CPU
     ``torch.Generator`` seeded with ``seed`` (the same tables on every
     device; different numbers from the reference's ``jax.random`` — use
     ``repro_torch.convert.params_from_reference`` to start from the
-    reference's tables)."""
+    reference's tables).
+
+    With a ``placement`` (vocab sharding) the *same* full-table init is
+    drawn and then split hot/cold, so a sharded session starts from
+    exactly the tables a replicated one would."""
     gen = torch.Generator().manual_seed(seed)
     d = cfg.dim
     w_in = (torch.rand((vocab_size, d), generator=gen,
                        dtype=torch.float32) - 0.5) / d
-    return TrainState(w_in=w_in.to(device),
-                      w_out=torch.zeros((vocab_size, d), dtype=torch.float32,
-                                        device=device))
+    w_out = torch.zeros((vocab_size, d), dtype=torch.float32)
+    if placement is None:
+        return TrainState(w_in=w_in.to(device), w_out=w_out.to(device))
+    (hot_in, cold_in), (hot_out, cold_out) = (
+        placement.split(t.numpy()) for t in (w_in, w_out))
+    put = lambda a: torch.from_numpy(a).to(device)          # noqa: E731
+    return TrainState(w_in=put(hot_in), w_out=put(hot_out),
+                      cold_in=put(cold_in), cold_out=put(cold_out))
 
 
 def _later_slice(what: str) -> NotImplementedError:
@@ -111,6 +134,9 @@ class TrainSession:
         window-tiled family).
     device : ``None`` (the GPU; raises without one), ``"cuda"``,
         ``"cuda:N"`` or ``"cpu"``.
+    exchange : overrides the spec's vocab-sharding exchange: ``"exact"``
+        (request-exact buckets, the default) or ``"dense"`` (the
+        all_gather + psum_scatter reference path).
     on_batch / on_metrics : callbacks after every trained batch, receiving
         the :class:`TrainState` / :class:`StepMetrics` respectively.
     """
@@ -125,6 +151,7 @@ class TrainSession:
         on_batch: Optional[Callable[[TrainState], None]] = None,
         on_metrics: Optional[Callable[[StepMetrics], None]] = None,
         ckpt_dir: Optional[str] = None,
+        exchange: Optional[str] = None,
     ):
         if mesh is not None:
             raise _later_slice("data-parallel training (mesh)")
@@ -133,7 +160,11 @@ class TrainSession:
         self.pipeline = pipeline
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.spec = tables_mod.from_config(cfg)
+        spec = tables_mod.from_config(cfg)
+        if exchange is not None:
+            spec = dataclasses.replace(spec, exchange=exchange)
+        self.spec = spec
+        self.exchange = spec.exchange
         # the requested name is kept for dispatch so batches without a plan
         # resolve their sequential variant
         self._requested_backend = backend
@@ -146,7 +177,18 @@ class TrainSession:
         self.on_batch = on_batch
         self.on_metrics = on_metrics
         table_rows = getattr(pipeline, "table_rows", pipeline.vocab.size)
-        self.state = init_state(table_rows, cfg, cfg.seed, self.device)
+        self.placement = None
+        if self.spec.vocab_shard:
+            from repro_torch.distributed.vocab_placement import \
+                VocabPlacement
+            # one shard: more need the data-parallel slice's process group
+            self.placement = VocabPlacement.plan(pipeline.vocab.counts, 1,
+                                                 hot_frac=self.spec.hot_frac)
+            # the pipeline plans each batch's exchange as it finalizes it
+            # (Batch.exchange); _make_step plans inline for batches without
+            pipeline.placement = self.placement
+        self.state = init_state(table_rows, cfg, cfg.seed, self.device,
+                                placement=self.placement)
         self._tables().check_runnable()
         self.total_words = max(1, pipeline.epoch_words * cfg.epochs)
         self.words_per_sec = 0.0
@@ -162,11 +204,23 @@ class TrainSession:
         return self._lr_at(self.state.words_seen)
 
     def _tables(self) -> Tables:
-        return Tables(w_in=self.state.w_in, w_out=self.state.w_out,
-                      spec=self.spec)
+        st = self.state
+        return Tables(w_in=st.w_in, w_out=st.w_out, cold_in=st.cold_in,
+                      cold_out=st.cold_out, spec=self.spec,
+                      placement=self.placement)
 
     def _make_step(self, batch: Batch, lr) -> StepInputs:
-        return batch.step_inputs(lr, self.device)
+        """Device StepInputs for a batch: the vocab-sharded exchange plan
+        when the session shards the vocabulary (``batch.exchange`` from a
+        placement-aware pipeline, else planned here), the plain lift
+        otherwise."""
+        if self.placement is None:
+            return batch.step_inputs(lr, self.device)
+        ex = getattr(batch, "exchange", None)
+        if ex is None or ex.placement != self.placement:
+            from repro_torch.distributed.vocab_placement import plan_exchange
+            ex = plan_exchange(batch, self.placement)
+        return ex.step_inputs(lr, self.device)
 
     def synchronize(self) -> None:
         """Wait for the session's device work to finish (no-op on CPU)."""
@@ -182,7 +236,10 @@ class TrainSession:
         count, which equals ``current_lr()`` exactly because word counts
         are known host-side ahead of training."""
         lr = self.current_lr()
-        if step is None:
+        if step is None or (self.placement is not None
+                            and not step.has_vocab_shard):
+            # a plain pre-built step carries global ids; the sharded path
+            # needs the exchange plan, so rebuild it from the host batch
             step = self._make_step(batch, lr)
         ops.step(self._tables(), step, self.cfg,
                  backend=self._requested_backend)
@@ -281,8 +338,24 @@ class TrainSession:
 
     # -- inference helpers ----------------------------------------------------
     def embeddings(self) -> np.ndarray:
-        """The input embedding table ``(V, d)`` as f32 numpy."""
-        return self.state.w_in.detach().cpu().numpy().astype(np.float32)
+        """The input embedding table ``(V, d)`` as f32 numpy; vocab-sharded
+        sessions reassemble it from the hot head and the cold tail (a full
+        ``(V, d)`` copy on the host: fine for examples and tests, wrong for
+        serving, which takes :meth:`embeddings_sharded`)."""
+        hot = self.state.w_in.detach().cpu().numpy().astype(np.float32)
+        if self.placement is None:
+            return hot
+        return self.placement.merge(hot, self.state.cold_in.detach().cpu()
+                                    .numpy())
+
+    def embeddings_sharded(self):
+        """Shard-aware view of the input table — no ``(V, d)`` gather.
+
+        Returns ``(hot, cold, placement)``: for a vocab-sharded session the
+        hot head ``(hot, d)``, the shard-major cold table ``(cold_pad, d)``
+        (device tensors, as trained) and the ``VocabPlacement`` describing
+        the layout; for a replicated session ``(w_in, None, None)``."""
+        return self.state.w_in, self.state.cold_in, self.placement
 
     def nearest(self, word_id: int, k: int = 5) -> np.ndarray:
         e = self.embeddings()

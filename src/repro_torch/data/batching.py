@@ -3,8 +3,9 @@
 A numpy copy of ``repro.data.batching``: batches and tile plans are
 bit-identical to the reference's for the same (corpus, cfg, epoch, index).
 Only the device lift (:meth:`Batch.step_inputs`) differs — it builds the
-port's torch ``StepInputs``. Vocab-sharding exchange plans and subword bag
-tables are not carried by this package yet.
+port's torch ``StepInputs``. Vocab-sharding exchange plans ride along
+(``Batch.exchange``); subword bag tables are not carried by this package
+yet.
 
 Responsibilities (all host-side, exactly as the paper assigns them):
   * encode + subsample sentences,
@@ -66,6 +67,19 @@ def negatives_rng(seed: int, epoch: int, batch_index: int
     """The keyed negative-sampling stream for one batch."""
     return np.random.default_rng(
         np.random.SeedSequence([seed, _NEGATIVES_TAG, epoch, batch_index]))
+
+
+def first_seen_unique(flat: np.ndarray) -> np.ndarray:
+    """Distinct values of ``flat`` in first-occurrence order.
+
+    The same dedup rule :func:`plan_tiles` applies to a window tile's
+    output slots, exposed for callers that dedup at other granularities —
+    the vocab-sharding exchange planner applies it per shard
+    (``distributed.vocab_placement.plan_exchange``) so each shard's working
+    table lays rows out in the order its sentences first touch them.
+    """
+    _, idx = np.unique(flat, return_index=True)
+    return flat[np.sort(idx)]
 
 
 def encode_block(vocab: Vocab, sentences: Sequence[Sequence],
@@ -252,10 +266,6 @@ def finalize_packed(packed: PackedBatch, cfg: W2VConfig,
     worker, in any order, produces the identical Batch, and
     ``plan_exchange`` is rng-free, so the attached exchange inherits the
     same determinism."""
-    if placement is not None:
-        raise NotImplementedError(
-            "vocab-sharding exchange plans arrive with a later slice of the "
-            "torch port")
     if bag_table is not None:
         raise NotImplementedError(
             "subword bag tables arrive with a later slice of the torch port")
@@ -281,6 +291,10 @@ def finalize_packed(packed: PackedBatch, cfg: W2VConfig,
         plan = plan_tiles(toks, negs, lens, cfg.tile_windows)
     batch = Batch(tokens=toks, negs=negs, lengths=lens, n_words=n_words,
                   plan=plan, docs=docs, epoch=epoch, index=packed.index)
+    if placement is not None:
+        # local import: the planner imports this module (first_seen_unique)
+        from repro_torch.distributed.vocab_placement import plan_exchange
+        batch.exchange = plan_exchange(batch, placement)
     return batch
 
 

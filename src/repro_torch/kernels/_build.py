@@ -68,6 +68,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fullw2v_tiled_launch.argtypes = [p, p, p, p, p, p, p, p, p, f,
                                          i, i, i, i, i, i, i, p]
     lib.fullw2v_tiled_launch.restype = i
+    lib.fullw2v_tiled_fused_launch.argtypes = [p, p, p, p, i, p, p, p, p, p,
+                                               p, p, f, i, i, i, i, i, i, i,
+                                               p]
+    lib.fullw2v_tiled_fused_launch.restype = i
     lib.fullw2v_error_string.argtypes = [i]
     lib.fullw2v_error_string.restype = ctypes.c_char_p
 

@@ -5,9 +5,15 @@
 //   fullw2v_seq      <- _kernel            (:284-369, via fullw2v_pallas)
 //   fullw2v_pipelined<- _kernel_pipelined  (:376-530, fullw2v_pallas with
 //                                           pipeline=True)
-//   fullw2v_tiled    <- _kernel_tiled      (:537-855, hot_rows=0,
+//   fullw2v_tiled<PlainTable>
+//                    <- _kernel_tiled      (:537-855, hot_rows=0,
 //                                           prefetch=False, via
 //                                           fullw2v_pallas_tiled)
+//   fullw2v_tiled<SplitTable>
+//                    <- _kernel_tiled      (:537-855, hot_rows>0,
+//                                           prefetch=True, via
+//                                           fullw2v_pallas_tiled_fused,
+//                                           pallas_call at :1078)
 //
 // What bounds them on this card: latency. The reference orders every
 // window of a batch after the previous one (its grid is sequential and
@@ -28,6 +34,14 @@
 // (context, output) pairs at once for the same reason.
 // window.cuh holds the shared update and the column-ownership rule that
 // makes cross-thread fences unnecessary.
+//
+// K4 is K3's body instantiated on the split working table of a
+// vocab-sharded step (SplitTable: hot replica + gathered cold block, routed
+// by id < hot), so the step never materializes concat(hot, got) and K4
+// equals K3 on that concatenation bit for bit. The reference's cross-tile
+// prefetch of the next tile's unique rows (prefetch=True, guarded by
+// was_prefetched, fullw2v.py:617-636) is not built: K2's prefetch ran
+// slower than K1 on this card, and K4 loads a tile's rows as K3 does.
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
@@ -62,19 +76,21 @@ __device__ __forceinline__ int out_row(const int* tok, const int* ng, int t,
   return j == 0 ? __ldg(tok + t) : __ldg(ng + (size_t)t * n_neg + j - 1);
 }
 
-// The ring of one sentence: slot = position mod rows.
+// The ring of one sentence: slot = position mod rows. Table is the input
+// table's row accessor (window.cuh); the slot math never sees it.
+template <typename Table>
 struct Ring {
   float* rows;
   int n;                 // ring rows: 2*w_f+1 sequential, T+2*w_f tiled
-  float* w_in;
+  Table w_in;
   const int* tok;
   int d;
 
   __device__ __forceinline__ void load(int q) const {   // w_in -> slot
-    load_row(rows + (size_t)(q % n) * d, w_in, __ldg(tok + q), d);
+    load_row(rows + (size_t)(q % n) * d, w_in.row(__ldg(tok + q)), d);
   }
   __device__ __forceinline__ void store(int p) const {  // slot -> w_in
-    store_row(w_in, __ldg(tok + p), rows + (size_t)(p % n) * d, d);
+    store_row(w_in.row(__ldg(tok + p)), rows + (size_t)(p % n) * d, d);
   }
   // Seed-kernel advance for window t: store the r_seq-distance evictee
   // (its windows are complete), then load the leading edge.
@@ -101,7 +117,9 @@ struct Ring {
 
 // One strictly ordered window: gather, fetch the m output rows, update,
 // write them back (the reference's _seq_window, fullw2v.py:239-277).
-__device__ __forceinline__ void seq_window(const Ring& ring, float* w_out,
+template <typename Table>
+__device__ __forceinline__ void seq_window(const Ring<Table>& ring,
+                                           const Table& w_out,
                                            const int* ng, float* ctx,
                                            float* out, float* g, int t,
                                            int w_f, int n_neg, int length,
@@ -114,7 +132,7 @@ __device__ __forceinline__ void seq_window(const Ring& ring, float* w_out,
   window_group_update(ring.rows, ring.n, ctx, out, nullptr, nullptr, g, 1, t,
                       length, w_f, m, d, lr);
   for (int b = 0; b < m; ++b)
-    store_row(w_out, out_row(ring.tok, ng, t, b, n_neg),
+    store_row(w_out.row(out_row(ring.tok, ng, t, b, n_neg)),
               out + (size_t)b * d, d);
 }
 
@@ -123,7 +141,8 @@ __device__ __forceinline__ void seq_window(const Ring& ring, float* w_out,
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
-fullw2v_seq(float* w_in, float* w_out, const int* __restrict__ tokens,
+fullw2v_seq(float* w_in_base, float* w_out_base,
+            const int* __restrict__ tokens,
             const int* __restrict__ negs, const int* __restrict__ lengths,
             float lr, int S, int L, int n_neg, int d, int w_f) {
   extern __shared__ float smem[];
@@ -134,12 +153,13 @@ fullw2v_seq(float* w_in, float* w_out, const int* __restrict__ tokens,
   float* ctx = ring_rows + (size_t)r * d;        // [K][d]
   float* out = ctx + (size_t)K * d;              // [m][d]
   float* g = out + (size_t)m * d;                // [K*m]
+  const PlainTable w_in{w_in_base, d}, w_out{w_out_base, d};
 
   for (int s = 0; s < S; ++s) {
     const int length = __ldg(lengths + s);
     const int* tok = tokens + (size_t)s * L;
     const int* ng = negs + (size_t)s * L * n_neg;
-    const Ring ring{ring_rows, r, w_in, tok, d};
+    const Ring<PlainTable> ring{ring_rows, r, w_in, tok, d};
     ring.preload(w_f, L, length);
     for (int t = 0; t < length; ++t) {
       ring.advance(t, w_f, r, length);
@@ -166,12 +186,13 @@ __device__ __forceinline__ bool conflicts_prev(const int* tok, const int* ng,
 }
 
 // Begin async loads of window t's non-colliding rows into buffer `buf`.
-__device__ __forceinline__ void start_prefetch(float* buf, const float* w_out,
+__device__ __forceinline__ void start_prefetch(float* buf,
+                                               const PlainTable& w_out,
                                                const int* tok, const int* ng,
                                                int t, int n_neg, int d) {
   for (int b = 0; b <= n_neg; ++b) {
     if (t > 0 && conflicts_prev(tok, ng, t, b, n_neg)) continue;
-    const float* src = w_out + (size_t)out_row(tok, ng, t, b, n_neg) * d;
+    const float* src = w_out.row(out_row(tok, ng, t, b, n_neg));
     float* dst = buf + (size_t)b * d;
     for (int j = threadIdx.x; j < d; j += blockDim.x)
       cp_async4(dst + j, src + j);
@@ -180,7 +201,8 @@ __device__ __forceinline__ void start_prefetch(float* buf, const float* w_out,
 }
 
 __global__ void __launch_bounds__(kThreads)
-fullw2v_pipelined(float* w_in, float* w_out, const int* __restrict__ tokens,
+fullw2v_pipelined(float* w_in_base, float* w_out_base,
+                  const int* __restrict__ tokens,
                   const int* __restrict__ negs,
                   const int* __restrict__ lengths, float lr, int S, int L,
                   int n_neg, int d, int w_f) {
@@ -192,12 +214,13 @@ fullw2v_pipelined(float* w_in, float* w_out, const int* __restrict__ tokens,
   float* ctx = ring_rows + (size_t)r * d;        // [K][d]
   float* out2 = ctx + (size_t)K * d;             // [2][m][d] double buffer
   float* g = out2 + (size_t)2 * m * d;           // [K*m]
+  const PlainTable w_in{w_in_base, d}, w_out{w_out_base, d};
 
   for (int s = 0; s < S; ++s) {
     const int length = __ldg(lengths + s);
     const int* tok = tokens + (size_t)s * L;
     const int* ng = negs + (size_t)s * L * n_neg;
-    const Ring ring{ring_rows, r, w_in, tok, d};
+    const Ring<PlainTable> ring{ring_rows, r, w_in, tok, d};
     ring.preload(w_f, L, length);
     if (length > 0) start_prefetch(out2, w_out, tok, ng, 0, n_neg, d);
 
@@ -212,8 +235,8 @@ fullw2v_pipelined(float* w_in, float* w_out, const int* __restrict__ tokens,
       if (t > 0)
         for (int b = 0; b < m; ++b)
           if (conflicts_prev(tok, ng, t, b, n_neg))
-            load_row(out + (size_t)b * d, w_out,
-                     out_row(tok, ng, t, b, n_neg), d);
+            load_row(out + (size_t)b * d,
+                     w_out.row(out_row(tok, ng, t, b, n_neg)), d);
 
       // overlap: window t+1's rows stream in while window t computes. The
       // other warps finished reading `nxt` (window t-1) before the last
@@ -228,8 +251,8 @@ fullw2v_pipelined(float* w_in, float* w_out, const int* __restrict__ tokens,
       window_group_update(ring.rows, r, ctx, out, nullptr, nullptr, g, 1, t,
                           length, w_f, m, d, lr);
       for (int b = 0; b < m; ++b)
-        store_row(w_out, out_row(tok, ng, t, b, n_neg), out + (size_t)b * d,
-                  d);
+        store_row(w_out.row(out_row(tok, ng, t, b, n_neg)),
+                  out + (size_t)b * d, d);
     }
     ring.flush(r, length);
   }
@@ -237,11 +260,13 @@ fullw2v_pipelined(float* w_in, float* w_out, const int* __restrict__ tokens,
 
 // ---------------------------------------------------------------------------
 // K3: T windows per step over a ring of T+2*w_f rows, driven by the host
-// tile plan (uniq, scatter, ucount, strict)
+// tile plan (uniq, scatter, ucount, strict). Table = PlainTable is K3,
+// Table = SplitTable is K4 (the same body on a split working table).
 // ---------------------------------------------------------------------------
 
+template <typename Table>
 __global__ void __launch_bounds__(kThreads)
-fullw2v_tiled(float* w_in, float* w_out, const int* __restrict__ tokens,
+fullw2v_tiled(Table w_in, Table w_out, const int* __restrict__ tokens,
               const int* __restrict__ negs, const int* __restrict__ lengths,
               const int* __restrict__ uniq, const int* __restrict__ scatter,
               const int* __restrict__ ucount, const int* __restrict__ strict,
@@ -264,7 +289,7 @@ fullw2v_tiled(float* w_in, float* w_out, const int* __restrict__ tokens,
     const int length = __ldg(lengths + s);
     const int* tok = tokens + (size_t)s * L;
     const int* ng = negs + (size_t)s * L * n_neg;
-    const Ring ring{ring_rows, rt, w_in, tok, d};
+    const Ring<Table> ring{ring_rows, rt, w_in, tok, d};
     ring.preload(w_f, L, length);
 
     for (int i = 0; i < nt && i * tile < length; ++i) {
@@ -316,7 +341,7 @@ fullw2v_tiled(float* w_in, float* w_out, const int* __restrict__ tokens,
 
       // ... and one write-back per unique row
       for (int c = 0; c < u; ++c)
-        store_row(w_out, __ldg(uq + c), out_uniq + (size_t)c * d, d);
+        store_row(w_out.row(__ldg(uq + c)), out_uniq + (size_t)c * d, d);
     }
     ring.flush(r_seq, length);
   }
@@ -375,15 +400,40 @@ int fullw2v_tiled_launch(void* w_in, void* w_out, const void* tokens,
                          const void* ucount, const void* strict, float lr,
                          int S, int L, int n_neg, int d, int w_f, int tile,
                          int G, void* stream) {
+  using fullw2v::PlainTable;
   const size_t smem = fullw2v::tiled_smem(d, w_f, n_neg, tile, G);
-  cudaError_t err = fullw2v::prepare(fullw2v::fullw2v_tiled, smem);
+  auto kernel = fullw2v::fullw2v_tiled<PlainTable>;
+  cudaError_t err = fullw2v::prepare(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  fullw2v::fullw2v_tiled<<<1, fullw2v::kThreads, smem,
-                           (cudaStream_t)stream>>>(
-      (float*)w_in, (float*)w_out, (const int*)tokens, (const int*)negs,
-      (const int*)lengths, (const int*)uniq, (const int*)scatter,
-      (const int*)ucount, (const int*)strict, lr, S, L, n_neg, d, w_f, tile,
-      G);
+  kernel<<<1, fullw2v::kThreads, smem, (cudaStream_t)stream>>>(
+      PlainTable{(float*)w_in, d}, PlainTable{(float*)w_out, d},
+      (const int*)tokens, (const int*)negs, (const int*)lengths,
+      (const int*)uniq, (const int*)scatter, (const int*)ucount,
+      (const int*)strict, lr, S, L, n_neg, d, w_f, tile, G);
+  return (int)cudaGetLastError();
+}
+
+// K4: K3 on the split working table (hot_in/hot_out: n_hot rows,
+// got_in/got_out: the gathered cold block), in place. Every id lies in
+// [0, n_hot + R); the wrapper checks.
+int fullw2v_tiled_fused_launch(void* hot_in, void* hot_out, void* got_in,
+                               void* got_out, int n_hot, const void* tokens,
+                               const void* negs, const void* lengths,
+                               const void* uniq, const void* scatter,
+                               const void* ucount, const void* strict,
+                               float lr, int S, int L, int n_neg, int d,
+                               int w_f, int tile, int G, void* stream) {
+  using fullw2v::SplitTable;
+  const size_t smem = fullw2v::tiled_smem(d, w_f, n_neg, tile, G);
+  auto kernel = fullw2v::fullw2v_tiled<SplitTable>;
+  cudaError_t err = fullw2v::prepare(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<1, fullw2v::kThreads, smem, (cudaStream_t)stream>>>(
+      SplitTable{(float*)hot_in, (float*)got_in, n_hot, d},
+      SplitTable{(float*)hot_out, (float*)got_out, n_hot, d},
+      (const int*)tokens, (const int*)negs, (const int*)lengths,
+      (const int*)uniq, (const int*)scatter, (const int*)ucount,
+      (const int*)strict, lr, S, L, n_neg, d, w_f, tile, G);
   return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,13 @@
 // Shared window machinery of the FULL-W2V kernels for Hopper (sm_90a).
 //
-// Replaces the building blocks that the three Pallas kernels of
+// Replaces the building blocks that the Pallas kernels of
 // src/repro/kernels/fullw2v.py share: _window_update (:157-182),
 // _gather_window_ctx (:192-201), _scatter_window_ctx (:204-213) and the
-// label/mask helpers (:216-236). Every kernel in fullw2v.cu calls
-// window_group_update for its arithmetic, so the sequential, pipelined and
-// tiled kernels agree bit for bit wherever their inputs agree.
+// label/mask helpers (:216-236), and the _Table row router (:101-155)
+// of the split-table kernel (PlainTable/SplitTable). Every kernel in fullw2v.cu
+// calls window_group_update for its arithmetic, so the sequential,
+// pipelined, tiled and split-table kernels agree bit for bit wherever
+// their inputs agree.
 //
 // What bounds it on this card: latency, not bytes or FLOPs. A window moves
 // about (2*(N+1) + 2) rows of d floats and does 3*2*K*(N+1)*d FLOPs, a few
@@ -61,11 +63,35 @@ __device__ __forceinline__ void gather_ctx(const float* ring, int ring_rows,
   }
 }
 
+// Row access of an embedding table: a row pointer for a row id. The plain
+// (V, d) table of K1-K3 ...
+struct PlainTable {
+  float* base;
+  int d;
+  __device__ __forceinline__ float* row(int id) const {
+    return base + (size_t)id * d;
+  }
+};
+
+// ... and K4's split working table of a vocab-sharded step: ids below hot
+// live in the hot replica, the rest in the gathered cold block at id - hot.
+// The split changes only where a row lives, never the order of any load,
+// FMA or store, so K4 on (hot, got) equals K3 on concat(hot, got) bit for
+// bit.
+struct SplitTable {
+  float* hot;
+  float* got;
+  int n_hot;
+  int d;
+  __device__ __forceinline__ float* row(int id) const {
+    return id < n_hot ? hot + (size_t)id * d : got + (size_t)(id - n_hot) * d;
+  }
+};
+
 // Table row -> shared row, owner columns (a plain load: the same thread
 // may have stored this row earlier in the batch).
-__device__ __forceinline__ void load_row(float* dst, const float* table,
-                                         int row, int d) {
-  const float* src = table + (size_t)row * d;
+__device__ __forceinline__ void load_row(float* dst, const float* src,
+                                         int d) {
   for (int j = threadIdx.x; j < d; j += blockDim.x) dst[j] = src[j];
 }
 
@@ -74,14 +100,14 @@ __device__ __forceinline__ void load_row(float* dst, const float* table,
 // overlap instead of adding up.
 constexpr int kRowBatch = 8;
 
-template <typename RowIndex>
-__device__ __forceinline__ void load_rows(float* dst, const float* table,
+template <typename Table, typename RowIndex>
+__device__ __forceinline__ void load_rows(float* dst, const Table& table,
                                           int n, int d, RowIndex row) {
   for (int b0 = 0; b0 < n; b0 += kRowBatch) {
     const float* src[kRowBatch];
 #pragma unroll
     for (int b = 0; b < kRowBatch; ++b)
-      src[b] = table + (size_t)(b0 + b < n ? row(b0 + b) : 0) * d;
+      src[b] = table.row(b0 + b < n ? row(b0 + b) : 0);
     for (int j = threadIdx.x; j < d; j += blockDim.x) {
       float v[kRowBatch];
 #pragma unroll
@@ -94,9 +120,9 @@ __device__ __forceinline__ void load_rows(float* dst, const float* table,
   }
 }
 
-__device__ __forceinline__ void store_row(float* table, int row,
-                                          const float* src, int d) {
-  float* dst = table + (size_t)row * d;
+// Shared row -> table row, owner columns.
+__device__ __forceinline__ void store_row(float* dst, const float* src,
+                                          int d) {
   for (int j = threadIdx.x; j < d; j += blockDim.x) dst[j] = src[j];
 }
 

@@ -9,18 +9,26 @@ The port's counterpart of ``repro.kernels.fullw2v``'s host entry points:
 * :func:`fullw2v_cuda_tiled` — the window-tiled kernel (backend
   ``cuda_tiled``, replacing ``_kernel_tiled``), driven by the host tile
   plan; bit-identical to the sequential kernel at T=1.
+* :func:`fullw2v_cuda_tiled_fused` — the same tiled kernel on the split
+  working table of a vocab-sharded step (K4, the ``update_fused`` of
+  ``cuda_tiled``, replacing ``_kernel_tiled`` with ``hot_rows > 0`` as
+  ``fullw2v_pallas_tiled_fused`` enters it); bit-identical to
+  :func:`fullw2v_cuda_tiled` on ``concat(hot, got)``.
 
-Both update ``w_in`` and ``w_out`` **in place** (the reference donates its
-tables to the same effect) and return them. Tensors on the CPU run the
-plain version (``kernels.ref``); CUDA tensors launch the kernel on the
-current stream or raise — there is no fallback. Each launch adds one to
-its kernel's count in :data:`LAUNCHES`.
+All update their tables **in place** (the reference donates its tables to
+the same effect) and return them. They take tensors on one CUDA device,
+launch the kernel on the current stream, and raise for anything else:
+CPU tensors included, since the plain versions (``kernels.ref``) are
+separate functions that the registry runs on the CPU (backends ``torch``
+and ``torch_tiled``). Each launch adds one to its kernel's count in
+:data:`LAUNCHES`.
 
 PRECONDITION (as in the reference, guaranteed by
 ``repro_torch.data.negatives``): within one window the N negatives are
 distinct from each other and from the target. With duplicates the kernels'
 per-row write-back is last-write-wins while the plain version scatter-adds.
-Token and negative ids must lie in ``[0, V)``; the kernels do not check.
+Token and negative ids must lie in ``[0, V)``; K1-K3 do not check, K4's
+wrapper checks its working-table ids on the host.
 """
 from __future__ import annotations
 
@@ -33,7 +41,8 @@ from repro_torch.kernels import ref as _ref
 
 # kernel launches per backend name; chip_smoke and the tests zero them
 # before a run and read them after to prove the run went through the kernel
-LAUNCHES: Dict[str, int] = {"cuda": 0, "cuda_pipelined": 0, "cuda_tiled": 0}
+LAUNCHES: Dict[str, int] = {"cuda": 0, "cuda_pipelined": 0, "cuda_tiled": 0,
+                            "cuda_tiled_fused": 0}
 
 def reset_launch_counts() -> None:
     """Zero every kernel's launch count."""
@@ -63,16 +72,16 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _check_batch(w_in, w_out, tokens, negs, lengths) -> Tuple[int, ...]:
-    """Validate the tables and index arrays; return (S, L, N, d)."""
-    for name, t in (("w_in", w_in), ("w_out", w_out)):
+def _check_tables(*named) -> None:
+    for name, t in named:
         _require(t.dtype == torch.float32 and t.dim() == 2,
                  f"{name} must be a 2-D float32 tensor, got {t.dtype} "
                  f"{tuple(t.shape)}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
-    _require(w_in.shape == w_out.shape,
-             f"w_in {tuple(w_in.shape)} and w_out {tuple(w_out.shape)} "
-             f"differ")
+
+
+def _check_index(tokens, negs, lengths) -> Tuple[int, int, int]:
+    """Validate the index arrays; return (S, L, N)."""
     _require(tokens.dim() == 2, f"tokens must be (S, L), got "
              f"{tuple(tokens.shape)}")
     S, L = tokens.shape
@@ -85,20 +94,44 @@ def _check_batch(w_in, w_out, tokens, negs, lengths) -> Tuple[int, ...]:
         _require(t.dtype == torch.int32, f"{name} must be int32, got "
                  f"{t.dtype}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
-    return S, L, negs.shape[2], w_in.shape[1]
+    return S, L, negs.shape[2]
 
 
-def _on_cuda(*tensors) -> bool:
-    """True when every tensor is on one CUDA device, False when every
-    tensor is on the CPU; anything else raises."""
+def _check_batch(w_in, w_out, tokens, negs, lengths) -> Tuple[int, ...]:
+    """Validate the tables and index arrays; return (S, L, N, d)."""
+    _check_tables(("w_in", w_in), ("w_out", w_out))
+    _require(w_in.shape == w_out.shape,
+             f"w_in {tuple(w_in.shape)} and w_out {tuple(w_out.shape)} "
+             f"differ")
+    return (*_check_index(tokens, negs, lengths), w_in.shape[1])
+
+
+def _check_plan(S, L, N, tile, uniq, scatter, ucount, strict) -> None:
+    _require(tile >= 1, f"tile must be >= 1, got {tile}")
+    nt = -(-L // tile)
+    M = tile * (N + 1)
+    for name, t, shape in (("uniq", uniq, (S, nt, M)),
+                           ("scatter", scatter, (S, nt, M)),
+                           ("ucount", ucount, (S, nt)),
+                           ("strict", strict, (S, nt))):
+        _require(tuple(t.shape) == shape,
+                 f"{name} must be {shape} for tile={tile}, got "
+                 f"{tuple(t.shape)}")
+        _require(t.dtype == torch.int32, f"{name} must be int32, got "
+                 f"{t.dtype}")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+
+
+def _require_cuda(*tensors) -> None:
+    """Every tensor must lie on one CUDA device; anything else raises. The
+    kernels have no CPU mode, and a CPU tensor is not routed to the plain
+    version: the registry runs the plain versions on the CPU."""
     devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
-        return False
     _require(len(devices) == 1 and next(iter(devices)).type == "cuda",
-             f"the kernel's tensors must share one CUDA device (or all lie "
-             f"on the CPU for the plain version), got "
-             f"{sorted(map(str, devices))}")
-    return True
+             f"the CUDA kernels take tensors on one CUDA device, got "
+             f"{sorted(map(str, devices))}; on the CPU run the plain "
+             f"versions (repro_torch.kernels.ref, backends torch and "
+             f"torch_tiled)")
 
 
 def _raise_on_error(lib, err: int, what: str) -> None:
@@ -122,9 +155,7 @@ def fullw2v_cuda(
     window order, updating ``w_in``/``w_out`` in place. ``pipeline``
     selects the prefetching kernel (same results, bit for bit)."""
     S, L, N, d = _check_batch(w_in, w_out, tokens, negs, lengths)
-    if not _on_cuda(w_in, w_out, tokens, negs, lengths):
-        return _ref.batch_sgns_ref(w_in, w_out, tokens, negs, lengths, lr,
-                                   w_f)
+    _require_cuda(w_in, w_out, tokens, negs, lengths)
     from repro_torch.kernels._build import load
     lib = load().lib
     with torch.cuda.device(w_in.device):
@@ -159,25 +190,10 @@ def fullw2v_cuda_tiled(
     must come from ``repro_torch.data.batching.plan_tiles`` for the same
     batch."""
     S, L, N, d = _check_batch(w_in, w_out, tokens, negs, lengths)
-    _require(tile >= 1, f"tile must be >= 1, got {tile}")
+    _check_plan(S, L, N, tile, uniq, scatter, ucount, strict)
     G = resolve_gemm_windows(tile, gemm_windows)
-    nt = -(-L // tile)
-    M = tile * (N + 1)
-    for name, t, shape in (("uniq", uniq, (S, nt, M)),
-                           ("scatter", scatter, (S, nt, M)),
-                           ("ucount", ucount, (S, nt)),
-                           ("strict", strict, (S, nt))):
-        _require(tuple(t.shape) == shape,
-                 f"{name} must be {shape} for tile={tile}, got "
-                 f"{tuple(t.shape)}")
-        _require(t.dtype == torch.int32, f"{name} must be int32, got "
-                 f"{t.dtype}")
-        _require(t.is_contiguous(), f"{name} must be contiguous")
-    if not _on_cuda(w_in, w_out, tokens, negs, lengths, uniq, scatter,
-                    ucount, strict):
-        return _ref.batch_sgns_tiled_ref(w_in, w_out, tokens, negs, lengths,
-                                         lr, w_f, tile, uniq, scatter, ucount,
-                                         strict, gemm_windows=G)
+    _require_cuda(w_in, w_out, tokens, negs, lengths, uniq, scatter, ucount,
+                  strict)
     from repro_torch.kernels._build import load
     lib = load().lib
     with torch.cuda.device(w_in.device):
@@ -190,3 +206,67 @@ def fullw2v_cuda_tiled(
     _raise_on_error(lib, err, "cuda_tiled")
     LAUNCHES["cuda_tiled"] += 1
     return w_in, w_out
+
+
+def fullw2v_cuda_tiled_fused(
+    hot_in: torch.Tensor,    # (hot, d) f32 — replicated hot head, in place
+    hot_out: torch.Tensor,   # (hot, d) f32, in place
+    got_in: torch.Tensor,    # (R, d) f32 — gathered cold block, in place
+    got_out: torch.Tensor,   # (R, d) f32, in place
+    tokens: torch.Tensor,    # (S, L) int32 — working-table ids (< hot + R)
+    negs: torch.Tensor,      # (S, L, N) int32
+    lengths: torch.Tensor,   # (S,) int32
+    lr,                      # float or 0-d tensor (read on the host)
+    w_f: int,
+    tile: int,
+    uniq: torch.Tensor,      # (S, nt, T*(N+1)) int32 — from plan_tiles
+    scatter: torch.Tensor,   # (S, nt, T*(N+1)) int32
+    ucount: torch.Tensor,    # (S, nt) int32
+    strict: torch.Tensor,    # (S, nt) int32
+    gemm_windows: int = 0,   # windows per GEMM group; 0 -> min(tile, 4)
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The window-tiled pass on the split working table of a vocab-sharded
+    step (K4): ids below ``hot`` address ``hot_*``, the rest ``got_*`` at
+    ``id - hot``, so ``concat(hot, got)`` is never built. Same results,
+    bit for bit, as :func:`fullw2v_cuda_tiled` on the concatenation.
+    ``R`` may be 0 (an all-hot batch). Every token, negative and used plan
+    id must lie in ``[0, hot + R)``; that is checked here, on the host."""
+    _check_tables(("hot_in", hot_in), ("hot_out", hot_out),
+                  ("got_in", got_in), ("got_out", got_out))
+    _require(hot_in.shape == hot_out.shape,
+             f"hot_in {tuple(hot_in.shape)} and hot_out "
+             f"{tuple(hot_out.shape)} differ")
+    _require(got_in.shape == got_out.shape,
+             f"got_in {tuple(got_in.shape)} and got_out "
+             f"{tuple(got_out.shape)} differ")
+    hot, d = hot_in.shape
+    _require(got_in.shape[1] == d,
+             f"got_in has d={got_in.shape[1]}, the hot tables d={d}")
+    _require(hot >= 1, "the hot head needs at least one row")
+    S, L, N = _check_index(tokens, negs, lengths)
+    _check_plan(S, L, N, tile, uniq, scatter, ucount, strict)
+    G = resolve_gemm_windows(tile, gemm_windows)
+    _require_cuda(hot_in, hot_out, got_in, got_out, tokens, negs, lengths,
+                  uniq, scatter, ucount, strict)
+    rows = hot + got_in.shape[0]
+    # one host read for all three arrays (plan columns past ucount hold 0,
+    # a hot row, so every entry can be checked)
+    ends = torch.stack([torch.stack([t.min(), t.max()])
+                        for t in (tokens, negs, uniq)])
+    lo, hi = torch.stack([ends[:, 0].min(), ends[:, 1].max()]).tolist()
+    _require(lo >= 0 and hi < rows,
+             f"working-table ids must lie in [0, hot + R) = [0, {rows}), "
+             f"got [{lo}, {hi}]")
+    from repro_torch.kernels._build import load
+    lib = load().lib
+    with torch.cuda.device(hot_in.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fullw2v_tiled_fused_launch(
+            hot_in.data_ptr(), hot_out.data_ptr(), got_in.data_ptr(),
+            got_out.data_ptr(), hot, tokens.data_ptr(), negs.data_ptr(),
+            lengths.data_ptr(), uniq.data_ptr(), scatter.data_ptr(),
+            ucount.data_ptr(), strict.data_ptr(), _ref.lr32(lr), S, L, N, d,
+            w_f, tile, G, stream)
+    _raise_on_error(lib, err, "cuda_tiled_fused")
+    LAUNCHES["cuda_tiled_fused"] += 1
+    return hot_in, hot_out, got_in, got_out

@@ -15,7 +15,10 @@ around small torch operations.
 version of the window-tiled kernel (``cuda_tiled``), consuming the same
 host tile plan (``repro_torch.data.batching.plan_tiles``). They are the
 ``torch`` and ``torch_tiled`` backends, what the CPU runs, and what the
-kernels are held against on the card.
+kernels are held against on the card. ``batch_sgns_tiled_fused_ref`` is
+the plain version of the split-table tiled kernel (K4,
+``fullw2v_cuda_tiled_fused``); it serves the tests and ``chip_smoke.py``
+(CPU sessions take the ``concat`` route of ``kernels.ops`` instead).
 
 Both update ``w_in`` and ``w_out`` in place (the reference donates its
 tables to the same effect) and return them. Control flow reads the index
@@ -261,3 +264,37 @@ def batch_sgns_tiled_ref(
                              length, lr, uniq[s], scatter[s], strict_host[s],
                              w_f=w_f, tile=tile, gemm_windows=G)
     return w_in, w_out
+
+
+def batch_sgns_tiled_fused_ref(
+    hot_in: torch.Tensor,    # (hot, d) f32 — replicated hot head, in place
+    hot_out: torch.Tensor,   # (hot, d) f32, in place
+    got_in: torch.Tensor,    # (R, d) f32 — gathered cold block, in place
+    got_out: torch.Tensor,   # (R, d) f32, in place
+    tokens: torch.Tensor,    # (S, L) int32 — working-table ids (< hot + R)
+    negs: torch.Tensor,      # (S, L, N) int32
+    lengths: torch.Tensor,   # (S,) int32
+    lr,                      # float or 0-d tensor
+    w_f: int,
+    tile: int,
+    uniq: torch.Tensor,      # (S, nt, T*(N+1)) int32 — from plan_tiles
+    scatter: torch.Tensor,   # (S, nt, T*(N+1)) int32
+    ucount: torch.Tensor,    # (S, nt) int32
+    strict: torch.Tensor,    # (S, nt) int32
+    gemm_windows: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The tiled pass on a split working table — the plain version of
+    ``fullw2v_cuda_tiled_fused``. K4's stated semantics (the reference's
+    ``fullw2v_pallas_tiled_fused``): :func:`batch_sgns_tiled_ref` on
+    ``concat(hot, got)``, split back into the four tables."""
+    hot = hot_in.shape[0]
+    w_in = torch.cat([hot_in, got_in])
+    w_out = torch.cat([hot_out, got_out])
+    batch_sgns_tiled_ref(w_in, w_out, tokens, negs, lengths, lr, w_f, tile,
+                         uniq, scatter, ucount, strict,
+                         gemm_windows=gemm_windows)
+    hot_in.copy_(w_in[:hot])
+    hot_out.copy_(w_out[:hot])
+    got_in.copy_(w_in[hot:])
+    got_out.copy_(w_out[hot:])
+    return hot_in, hot_out, got_in, got_out

@@ -14,13 +14,16 @@ port backend       reference backend   runs
 ``torch_tiled``    ``jnp_tiled``       ``kernels.ref.batch_sgns_tiled_ref``
 ``cuda``           ``pallas``          K1, the sequential kernel
 ``cuda_pipelined`` ``pallas_pipelined`` K2, K1 plus prefetch
-``cuda_tiled``     ``pallas_tiled``    K3, the window-tiled kernel
+``cuda_tiled``     ``pallas_tiled``    K3, the window-tiled kernel; on
+                                       a vocab-sharded step its
+                                       ``update_fused`` runs K4
 =================  ==================  ================================
 
 The descriptors declare the reference's capabilities (vocab sharding,
 storage dtypes, frontends) so that resolution accepts and rejects the same
-combinations; the paths behind the ones this slice of the port does not
-run yet raise in ``kernels.ops.step``.
+combinations; the paths behind the ones the port does not run yet (data
+parallelism, more than one vocab shard, mixed precision, frontends) raise
+in ``kernels.ops.step``.
 
 The implementations register themselves from ``repro_torch.kernels.ops``
 at import time; every registry query triggers that import lazily.
@@ -46,8 +49,11 @@ class StepInputs:
     """Device inputs for one training step. ``plan_*`` carry the host tile
     schedule (``repro_torch.data.batching.plan_tiles``) and are
     all-or-none: present for the window-tiled backends, ``None`` for the
-    sequential ones. ``lr`` is a 0-d float32 tensor on the CPU: kernels
-    read it on the host at launch, so it never costs a device sync."""
+    sequential ones. ``cold_ids``/``bucket_*`` carry a vocab-sharding
+    exchange plan (``repro_torch.distributed.vocab_placement
+    .plan_exchange``); token, negative and plan ids are then working-table
+    ids. ``lr`` is a 0-d float32 tensor on the CPU: kernels read it on the
+    host at launch, so it never costs a device sync."""
     tokens: torch.Tensor                          # (S, L) int32
     negs: torch.Tensor                            # (S, L, N) int32
     lengths: torch.Tensor                         # (S,) int32
@@ -56,11 +62,19 @@ class StepInputs:
     plan_scatter: Optional[torch.Tensor] = None   # (S, nt, T*(N+1)) int32
     plan_ucount: Optional[torch.Tensor] = None    # (S, nt) int32
     plan_strict: Optional[torch.Tensor] = None    # (S, nt) int32
+    cold_ids: Optional[torch.Tensor] = None       # (n_shards, R) int32, -1 pad
+    bucket_ids: Optional[torch.Tensor] = None     # (n, n, C) int32, -1 pad
+    bucket_pos: Optional[torch.Tensor] = None     # (n, n, C) int32, R pad
 
     @property
     def has_plan(self) -> bool:
         """Whether this step carries a host tile schedule (tiled family)."""
         return self.plan_uniq is not None
+
+    @property
+    def has_vocab_shard(self) -> bool:
+        """Whether this step carries a vocab-sharding exchange plan."""
+        return self.cold_ids is not None
 
     @property
     def tile(self) -> int:
@@ -110,6 +124,15 @@ class KernelStatic:
 UpdateFn = Callable[[torch.Tensor, torch.Tensor, StepInputs, KernelStatic],
                     Tuple[torch.Tensor, torch.Tensor]]
 
+# update_fused(hot_in, hot_out, got_in, got_out, step, static) -> 4-tuple,
+# in place: the vocab-sharded working table handed to the kernel *split* —
+# hot replica and gathered cold block stay separate buffers and the kernel
+# reads each row from whichever side holds it (no concat materialization)
+FusedUpdateFn = Callable[
+    [torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, StepInputs,
+     KernelStatic],
+    Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]
+
 
 @dataclasses.dataclass(frozen=True)
 class KernelBackend:
@@ -128,6 +151,14 @@ class KernelBackend:
     supports_frontends: Tuple[str, ...] = ()
     requires_cuda: bool = False       # a CUDA kernel: runs only on the GPU
     tiled_variant: Optional[str] = None      # name of the tiled counterpart
+    update_fused: Optional[FusedUpdateFn] = None  # split-table entry point
+
+    @property
+    def supports_fused_gather(self) -> bool:
+        """Whether the vocab-sharded step can hand this backend the hot
+        replica and the gathered cold rows as separate buffers instead of
+        paying a ``concat(hot, gathered)`` materialization per step."""
+        return self.update_fused is not None
 
 
 _REGISTRY: Dict[str, KernelBackend] = {}

@@ -2,13 +2,14 @@
 
 The port's counterpart of ``repro.kernels.tables``. ``TableSpec`` and the
 ``--tables`` grammar (:func:`parse`) are copied verbatim, so a spec string
-means the same in both packages. This slice of the port runs only the f32
-replicated spec; :meth:`Tables.check_runnable` raises for anything else.
+means the same in both packages. The port runs f32 tables, replicated or
+vocab-sharded; :meth:`Tables.check_runnable` raises for mixed-precision
+specs until their slice lands.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -176,18 +177,34 @@ def from_config(cfg) -> TableSpec:
 
 @dataclasses.dataclass
 class Tables:
-    """The table tensors one engine step updates: the full replicated
-    ``(V, d)`` float32 pair and the spec they are stored under. Vocab-sharded
-    cold tails and int8 scales arrive with later slices of the port."""
+    """The table tensors one engine step updates in place.
+
+    Replicated sessions hold the full ``(V, d)`` float32 pair in
+    ``w_in``/``w_out``. Vocab-sharded sessions hold the replicated hot
+    head there instead and the striped ``(cold_pad, d)`` tail in
+    ``cold_in``/``cold_out``; ``placement`` (a
+    ``repro_torch.distributed.vocab_placement.VocabPlacement``) describes
+    the split. int8 scales arrive with the mixed-precision slice."""
     w_in: torch.Tensor
     w_out: torch.Tensor
+    cold_in: Optional[torch.Tensor] = None
+    cold_out: Optional[torch.Tensor] = None
     spec: TableSpec = TableSpec()
+    placement: Optional[object] = None
 
     def check_runnable(self) -> None:
-        """Raise unless this slice of the port can run ``spec``: f32,
-        replicated tables only."""
-        if self.spec.is_mixed or self.spec.vocab_shard:
+        """Raise unless the port can run ``spec``: f32 tables, replicated
+        or vocab-sharded with their cold tail and placement present."""
+        if self.spec.is_mixed:
             raise NotImplementedError(
-                f"TableSpec {self.spec} needs mixed-precision or vocab-sharded "
-                f"tables, which arrive with a later slice of the torch port; "
-                f"only f32 replicated tables run here")
+                f"TableSpec {self.spec} stores tables below f32; "
+                f"mixed-precision tables arrive with a later slice of the "
+                f"torch port, only f32 tables run here")
+        sharded = self.placement is not None
+        has_cold = self.cold_in is not None and self.cold_out is not None
+        if self.spec.vocab_shard != sharded or has_cold != sharded:
+            raise ValueError(
+                f"TableSpec.vocab_shard={self.spec.vocab_shard} but the "
+                f"tables carry placement={self.placement!r} and "
+                f"{'cold tables' if has_cold else 'no cold tables'}; a "
+                f"vocab-sharded spec needs both, a replicated one neither")

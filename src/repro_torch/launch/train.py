@@ -6,9 +6,12 @@ defaults, on the GPU unless ``--device cpu`` is given:
   PYTHONPATH=src python -m repro_torch.launch.train w2v --vocab 65536 \\
       --sentences 30000 --sentences-per-batch 10000 --tile-windows 8
 
+``--vocab-shard`` (one shard) and ``--hot-vocab-frac`` train with a
+vocab-sharded table; ``--tables`` takes f32 specs on at most one shard.
 Flags of features that arrive with later slices of the port (other
-workloads, vocab sharding, ``--tables``, checkpoints, resilience, prefetch
-workers) are accepted by the parser and exit with an error that says so.
+workloads, more than one vocab shard, mixed-precision ``--tables``,
+checkpoints, resilience, prefetch workers) are accepted by the parser and
+exit with an error that says so.
 """
 from __future__ import annotations
 
@@ -24,12 +27,28 @@ from repro_torch.kernels import registry
 WORKLOADS = ("w2v", "doc2vec", "node2vec", "subword")
 
 
+def _tables_later_slice(tables: str) -> bool:
+    """Whether a ``--tables`` spec needs a later slice: mixed-precision
+    storage or more than one shard (an unparsable spec is left to the
+    session, which raises the parser's own error)."""
+    from repro_torch.kernels.tables import parse
+    try:
+        spec = parse(tables)
+    except ValueError:
+        return False
+    return spec.is_mixed or spec.shards > 1
+
+
 def _unsupported(args) -> Optional[str]:
     """The first flag naming a later slice's feature, or None."""
     checks = (
         (args.workload != "w2v", f"--workload {args.workload}"),
-        (args.vocab_shard > 0, "--vocab-shard"),
-        (bool(args.tables), "--tables"),
+        (args.vocab_shard > 1,
+         f"--vocab-shard {args.vocab_shard} (more than one shard needs the "
+         f"data-parallel slice, ROADMAP item 7)"),
+        (_tables_later_slice(args.tables),
+         f"--tables {args.tables} (mixed precision or more than one "
+         f"shard)"),
         (args.ckpt_dir is not None, "--ckpt-dir"),
         (args.max_restarts > 0 or args.step_timeout > 0
          or args.health_every > 0 or args.reset_after > 0,
@@ -63,7 +82,10 @@ def run_w2v(args) -> int:
                     max_sentence_len=args.max_sentence_len,
                     tile_windows=args.tile_windows,
                     tile_gemm_windows=args.tile_gemm_windows,
-                    pad_len=args.pad_len)
+                    pad_len=args.pad_len,
+                    vocab_shard=bool(args.vocab_shard),
+                    hot_vocab_frac=args.hot_vocab_frac,
+                    tables=args.tables)
     # the w2v workload's corpus, built as repro.frontends' w2v frontend
     # builds it
     corpus = synthetic_cluster_corpus(
@@ -78,13 +100,18 @@ def run_w2v(args) -> int:
     trainer = TrainSession(pipe, cfg, backend=args.backend,
                            device=args.device)
     print(f"backend={trainer.backend} device={trainer.device}")
+    if trainer.placement is not None:
+        p = trainer.placement
+        print(f"vocab_shard: hot={p.hot} cold={p.cold} shards={p.n_shards} "
+              f"rows/device={p.rows_per_device} "
+              f"(replicated would be {p.vocab_size})")
     trainer.train(max_batches=args.max_batches)
     print(f"throughput: {trainer.words_per_sec:,.0f} words/sec "
           f"({trainer.state.words_seen:,} words) "
           f"device_busy_frac={trainer.device_busy_frac:.3f}")
     # bit-exactness witness: identical configs print identical digests
     digest = hashlib.sha1()
-    for part in (trainer.state.w_in, trainer.state.w_out):
+    for part in trainer.state.params().values():
         digest.update(part.detach().cpu().numpy().tobytes())
     print(f"final_digest={digest.hexdigest()}")
     inv = np.zeros(pipe.vocab.size, dtype=int)

@@ -5,7 +5,8 @@ GPU and nvcc; skipped elsewhere). Run on a GPU machine with
 
 Tolerance: atol 2e-5, rtol 1e-4 (the JAX package's kernel tolerance); the
 prefetching kernel and the tiled kernel at T=1 must equal the sequential
-kernel bit for bit."""
+kernel bit for bit, and the split-table kernel (K4) the tiled kernel on
+``concat(hot, got)``."""
 import numpy as np
 import pytest
 import torch
@@ -109,6 +110,54 @@ def test_strict_tiles_equal_sequential_kernel(dev):
     assert all(torch.equal(a, b) for a, b in zip(k3, k1))
 
 
+def _split(tables, hot):
+    w_in, w_out = tables()
+    return (w_in[:hot].clone(), w_out[:hot].clone(), w_in[hot:].clone(),
+            w_out[hot:].clone())
+
+
+@pytest.mark.parametrize("hot", [1, 512, 2047])
+def test_fused_kernel_matches_plain_and_tiled_on_concat(dev, hot):
+    """K4 on the table split at ``hot`` (one hot row, a quarter, all but one
+    row) against its plain version, and bit for bit against K3 on the
+    concatenation."""
+    tables, idx, host, put = _batch(dev, 20 + hot)
+    plan = plan_tiles(*host, 8)
+    p = [put(a) for a in (plan.uniq, plan.scatter, plan.ucount, plan.strict)]
+    want = ref.batch_sgns_tiled_fused_ref(*_split(tables, hot), *idx, 0.05,
+                                          3, 8, *p, gemm_windows=4)
+    got = fullw2v.fullw2v_cuda_tiled_fused(*_split(tables, hot), *idx, 0.05,
+                                           3, 8, *p, gemm_windows=4)
+    k3 = fullw2v.fullw2v_cuda_tiled(*tables(), *idx, 0.05, 3, 8, *p,
+                                    gemm_windows=4)
+    torch.cuda.synchronize()
+    _assert_close(got, want)
+    assert torch.equal(torch.cat([got[0], got[2]]), k3[0])
+    assert torch.equal(torch.cat([got[1], got[3]]), k3[1])
+
+
+def test_fused_kernel_all_hot_and_out_of_range_ids(dev):
+    """R = 0 (an all-hot batch) runs; an id past hot + R raises on the
+    host before any launch."""
+    tables, idx, host, put = _batch(dev, 30)
+    plan = plan_tiles(*host, 4)
+    p = [put(a) for a in (plan.uniq, plan.scatter, plan.ucount, plan.strict)]
+    w_in, w_out = tables()
+    empty = w_in[:0].clone()
+    got = fullw2v.fullw2v_cuda_tiled_fused(w_in, w_out, empty, empty.clone(),
+                                           *idx, 0.05, 3, 4, *p)
+    k3 = fullw2v.fullw2v_cuda_tiled(*tables(), *idx, 0.05, 3, 4, *p)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], k3[0]) and torch.equal(got[1], k3[1])
+    fullw2v.reset_launch_counts()
+    short = _split(tables, 100)
+    with pytest.raises(ValueError, match="working-table ids"):
+        fullw2v.fullw2v_cuda_tiled_fused(*short[:2], short[2][:10].clone(),
+                                         short[3][:10].clone(), *idx, 0.05,
+                                         3, 4, *p)
+    assert fullw2v.LAUNCHES["cuda_tiled_fused"] == 0
+
+
 def test_launch_counts(dev):
     tables, idx, _, _ = _batch(dev, 4)
     fullw2v.reset_launch_counts()
@@ -116,7 +165,7 @@ def test_launch_counts(dev):
     fullw2v.fullw2v_cuda(*tables(), *idx, 0.05, 3, pipeline=True)
     fullw2v.fullw2v_cuda(*tables(), *idx, 0.05, 3, pipeline=True)
     assert fullw2v.LAUNCHES == {"cuda": 1, "cuda_pipelined": 2,
-                                "cuda_tiled": 0}
+                                "cuda_tiled": 0, "cuda_tiled_fused": 0}
 
 
 def test_bad_inputs_raise_on_the_card(dev):

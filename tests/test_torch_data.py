@@ -91,9 +91,13 @@ def test_later_slice_branches_raise():
                                       n_sentences=20, seed=0)
     pipe = batching.BatchingPipeline(corpus, smoke())
     packed = next(pipe._packed(None, 0))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        batching.finalize_packed(packed, pipe.cfg, pipe.sampler, 0,
-                                 placement=object())
+    # a placement no longer waits for a later slice: it attaches the plan
+    from repro_torch.distributed.vocab_placement import VocabPlacement
+    placement = VocabPlacement.plan(pipe.vocab.counts, 1)
+    batch = batching.finalize_packed(packed, pipe.cfg, pipe.sampler, 0,
+                                     placement=placement)
+    assert batch.exchange is not None
+    assert batch.exchange.placement == placement
     with pytest.raises(NotImplementedError, match="later slice"):
         batching.finalize_packed(packed, pipe.cfg, pipe.sampler, 0,
                                  bag_table=np.zeros((1, 1), np.int32))

@@ -1,6 +1,7 @@
-"""The torch port stands alone: importing ``repro_torch`` (every module) and
-``chip_smoke`` leaves ``jax`` and the reference package ``repro`` unloaded,
-and no source of the port names them in an import."""
+"""The torch port stands alone: importing ``repro_torch`` (every module,
+``repro_torch.distributed`` included) and ``chip_smoke`` leaves ``jax`` and
+the reference package ``repro`` unloaded, and no source of the port names
+them in an import."""
 import ast
 import os
 import pathlib
@@ -27,13 +28,15 @@ def test_import_leaves_jax_and_reference_unloaded():
                      if n == "jax" or n.startswith("jax.")
                      or n == "repro" or n.startswith("repro."))
         print("MODULES", len(mods))
+        print("DISTRIBUTED", "repro_torch.distributed.vocab_placement" in mods)
         print("BAD", bad)
     """.format(repo=REPO)
     out = run_subprocess(code, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("MODULES")[1].split()[0])
-    assert n >= 17, out.stdout       # every module of the package imported
+    assert n >= 19, out.stdout       # every module of the package imported
+    assert "DISTRIBUTED True" in out.stdout, out.stdout
 
 
 def _imported_roots(path: pathlib.Path):

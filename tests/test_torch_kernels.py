@@ -1,8 +1,8 @@
 """The port's plain kernel versions (``repro_torch.kernels.ref``, what the
 CUDA kernels are held against on the card) against the reference: the jnp
 oracles at d=128, and on one small case the reference Pallas kernels
-themselves in interpret mode. Also the wrappers' CPU routing and input
-checks. Tolerance: atol 2e-5, rtol 1e-4 (the reference's own kernel
+themselves in interpret mode. Also the wrappers' refusal of CPU tensors
+and their input checks. Tolerance: atol 2e-5, rtol 1e-4 (the reference's own kernel
 tolerance)."""
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +16,17 @@ from repro_torch.kernels import fullw2v, ref
 from tests.conftest import make_distinct_negs
 
 TOL = dict(atol=2e-5, rtol=1e-4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: beside the other test workers, torch's default
+    (one thread per core) oversubscribes the cores and these small-tensor
+    tests slow tenfold or more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _make(seed, V, d, S, L, N, lengths):
@@ -124,23 +135,28 @@ def test_plain_matches_reference_pallas_interpret(form):
     _close(got, want)
 
 
-def test_wrappers_route_cpu_tensors_to_plain_versions():
+@pytest.mark.parametrize("kernel", ["cuda", "cuda_pipelined", "cuda_tiled",
+                                    "cuda_tiled_fused"])
+def test_wrappers_raise_on_cpu_tensors(kernel):
+    """The kernels have no CPU mode and the wrappers never route CPU
+    tensors to the plain versions (the registry runs those on the CPU):
+    valid CPU inputs raise, and no launch is counted."""
     batch = _make(3, 40, 128, 3, 12, 3, [12, 5, 2])
-    want = _port_seq(*batch, 0.05, 2)
+    w_in, w_out, *idx = _torch(*batch)
+    plan = _torch(*(getattr(plan_tiles(*batch[2:], 4), f)
+                    for f in ("uniq", "scatter", "ucount", "strict")))
     fullw2v.reset_launch_counts()
-    for pipeline in (False, True):
-        got = fullw2v.fullw2v_cuda(*_torch(*batch), 0.05, 2,
-                                   pipeline=pipeline)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
-    plan = plan_tiles(*batch[2:], 4)
-    got = fullw2v.fullw2v_cuda_tiled(
-        *_torch(*batch), 0.05, 2, 4,
-        *_torch(plan.uniq, plan.scatter, plan.ucount, plan.strict))
-    for a, b in zip(got, _port_tiled(*batch, 0.05, 2, 4, 0)):
-        assert torch.equal(a, b)
-    assert fullw2v.LAUNCHES == {"cuda": 0, "cuda_pipelined": 0,
-                                "cuda_tiled": 0}   # no kernel ran
+    with pytest.raises(ValueError, match="one CUDA device"):
+        if kernel == "cuda_tiled":
+            fullw2v.fullw2v_cuda_tiled(w_in, w_out, *idx, 0.05, 2, 4, *plan)
+        elif kernel == "cuda_tiled_fused":
+            fullw2v.fullw2v_cuda_tiled_fused(
+                w_in[:10].clone(), w_out[:10].clone(), w_in[10:].clone(),
+                w_out[10:].clone(), *idx, 0.05, 2, 4, *plan)
+        else:
+            fullw2v.fullw2v_cuda(w_in, w_out, *idx, 0.05, 2,
+                                 pipeline=kernel == "cuda_pipelined")
+    assert set(fullw2v.LAUNCHES.values()) == {0}       # no kernel ran
 
 
 def test_wrappers_reject_bad_inputs():
@@ -156,9 +172,10 @@ def test_wrappers_reject_bad_inputs():
         (w_in, w_out[:-1], tokens, negs, lengths),
         (w_in, w_out, tokens, negs[:, :-1], lengths),
     ]
-    fullw2v.fullw2v_cuda(*good, 0.05, 2)
-    for args in bad:
-        with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fullw2v.fullw2v_cuda(*good, 0.05, 2)     # valid, but on the CPU
+    for args in bad:                             # checked before the device
+        with pytest.raises(ValueError, match="must|differ"):
             fullw2v.fullw2v_cuda(*args, 0.05, 2)
     plan = plan_tiles(*(a.numpy() for a in (tokens, negs, lengths)), 4)
     p = _torch(plan.uniq, plan.scatter, plan.ucount, plan.strict)
@@ -166,6 +183,17 @@ def test_wrappers_reject_bad_inputs():
         fullw2v.fullw2v_cuda_tiled(*good, 0.05, 2, 2, *p)     # wrong tile
     with pytest.raises(ValueError, match="int32"):
         fullw2v.fullw2v_cuda_tiled(*good, 0.05, 2, 4, p[0].long(), *p[1:])
+    split = (w_in[:10].clone(), w_out[:10].clone(), w_in[10:].clone(),
+             w_out[10:].clone())
+    for tabs, match in (((split[0], split[1][:-1], *split[2:]), "hot_out"),
+                        ((*split[:2], split[2], split[3][:-1]), "got_out"),
+                        ((*split[:2], split[2][:, :-1].contiguous(),
+                          split[3][:, :-1].contiguous()), "d="),
+                        ((split[0][:0], split[1][:0], *split[2:]), "hot head"),
+                        ((split[0].double(), *split[1:]), "hot_in")):
+        with pytest.raises(ValueError, match=match):
+            fullw2v.fullw2v_cuda_tiled_fused(*tabs, tokens, negs, lengths,
+                                             0.05, 2, 4, *p)
 
 
 def test_tiled_scratch_rows():

@@ -23,6 +23,17 @@ from tests.conftest import REPO, SRC
 TOL = dict(atol=2e-5, rtol=1e-4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: beside the other test workers, torch's default
+    (one thread per core) oversubscribes the cores and these small-tensor
+    tests slow tenfold or more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg_kw(tile):
     return dict(dim=64, window=5, negatives=5, sentences_per_batch=12,
                 max_sentence_len=24, tile_windows=tile, tile_gemm_windows=4,
@@ -99,7 +110,9 @@ def test_params_from_reference_validates():
 
 
 def _cli(*args):
-    env = dict(os.environ, PYTHONPATH=SRC)
+    # one OpenMP thread: beside the other test workers, the default thread
+    # count oversubscribes the cores and the run slows 20x or more
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "w2v", *args],
         env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
