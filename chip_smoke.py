@@ -15,21 +15,26 @@ non-zero):
               batch on the table split at hot=V/4) against their plain
               versions on the card (atol 2e-5, rtol 1e-4, the JAX
               package's kernel tolerance); K2 == K1, K3(T=1) == K1 and
-              K4 == K3 on concat(hot, got) bit for bit.
+              K4 == K3 on concat(hot, got) bit for bit; K1 and K2 once
+              more at a shape outside the compiled list (w_f=4, N=7),
+              which takes the runtime-shaped body.
 4. trainer  — ``TrainSession`` with ``backend="auto"`` on the card at the
-              paper's width (d=128, W=5, N=5, S=10,000 sentences per batch,
-              65,536-word cluster corpus, 3 batches): T=1 must resolve to
-              ``cuda_pipelined``, T=8 to ``cuda_tiled``; a third run asks
-              for ``cuda`` by name; a fourth shards the vocabulary (one
-              shard, T=8) and must launch K4 once per batch and K3 never,
-              and end with embeddings bit-identical to the replicated T=8
-              run's. Launch counts are zeroed before each run and read
-              after it.
+              paper's width (d=128, W=5 so w_f=3, N=5, S=10,000 sentences
+              per batch, 65,536-word cluster corpus, 3 batches): T=1 must
+              resolve to ``cuda_pipelined``, T=8 to ``cuda_tiled``; a third
+              run asks for ``cuda`` by name; a fourth shards the vocabulary
+              (one shard, T=8) and must launch K4 once per batch and K3
+              never, and end with embeddings bit-identical to the
+              replicated T=8 run's. Launch counts are zeroed before each
+              run and read after it; the T=1 runs must have gone through
+              K1/K2's compiled instantiation for their shape.
 5. timing   — each kernel on the trainer's first batch (the main path's
               shapes; for K4 the sharded run's first batch, with the
               exchange timed apart) against its plain version on the same
-              inputs, then timed (CUDA events) beside its bound and the
-              plain version's time; one JSON line lists them.
+              inputs (and K2 == K1 == K3(T=1) bit for bit there), then
+              timed (CUDA events) beside its bound and the plain version's
+              time, in ms per launch and µs per window; one JSON line
+              lists them.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the repository's ``src/`` beside it, the script fails before
@@ -243,6 +248,7 @@ def phase_parity(torch, np, seed):
     moved = float((k1[0] - tens(inp["w_in"])).abs().max())
     if moved < 1e-4:
         raise AssertionError(f"cuda left w_in unchanged (max delta {moved})")
+    phase_parity_runtime_shape(torch, np, seed)
 
     # timings at this shape: the plain versions (host clock, they loop in
     # Python) and the kernels (CUDA events)
@@ -270,6 +276,41 @@ def phase_parity(torch, np, seed):
     return errs, timing
 
 
+def phase_parity_runtime_shape(torch, np, seed):
+    """K1 and K2 at w_f=4, N=7 (outside the compiled list: the
+    runtime-shaped body) against the plain version, and K2 == K1."""
+    from repro_torch.kernels import fullw2v, ref
+
+    rng = np.random.default_rng(seed + 1)
+    V, d, S, L, N, w_f = 4096, 128, 4, 48, 7, 4
+    w_in = (rng.normal(size=(V, d)) * 0.1).astype(np.float32)
+    w_out = (rng.normal(size=(V, d)) * 0.1).astype(np.float32)
+    tokens = rng.integers(0, 64, size=(S, L)).astype(np.int32)  # repeats
+    negs = _distinct_negs(rng, np, tokens, V, N)
+    lengths = np.array([L, 3, 1, 37], np.int32)
+    dev = torch.device("cuda")
+    tens = lambda a: torch.from_numpy(a).to(dev)          # noqa: E731
+    tables = lambda: (tens(w_in.copy()), tens(w_out.copy()))  # noqa: E731
+    idx = [tens(a) for a in (tokens, negs, lengths)]
+    want = ref.batch_sgns_ref(*tables(), *idx, 0.05, w_f)
+    fullw2v.reset_launch_counts()
+    k1 = fullw2v.fullw2v_cuda(*tables(), *idx, 0.05, w_f)
+    k2 = fullw2v.fullw2v_cuda(*tables(), *idx, 0.05, w_f, pipeline=True)
+    torch.cuda.synchronize()
+    took = {k: v for k, v in fullw2v.SEQ_LAUNCHES.items() if v}
+    if took != {"runtime": 2}:
+        raise AssertionError(f"w_f=4, N=7 took {took}, not the runtime "
+                             f"body twice")
+    err = max(_check_close(torch, f"cuda (w_f=4, N=7) {part}", g, w)
+              for part, g, w in zip(("w_in", "w_out"), k1, want))
+    if not (torch.equal(k1[0], k2[0]) and torch.equal(k1[1], k2[1])):
+        raise AssertionError("cuda_pipelined is not bit-identical to cuda "
+                             "at w_f=4, N=7")
+    _line("parity", kernel="cuda+cuda_pipelined", shape="w_f=4 N=7",
+          instantiation="runtime", max_abs_err=f"{err:.3e}",
+          bitwise="cuda_pipelined==cuda")
+
+
 def make_pipeline(args, tile: int, **shard):
     from repro_torch.configs.w2v import W2VConfig
     from repro_torch.data.batching import BatchingPipeline
@@ -287,7 +328,11 @@ def make_pipeline(args, tile: int, **shard):
 
 def phase_trainer(torch, np, args, tile: int, backend: str, expect: str,
                   **shard):
-    """One main-path run; returns (session, launches, seconds/step)."""
+    """One main-path run; returns (session, launches, seconds/step, the
+    K1/K2 instantiation it took or None, host seconds/step). Host seconds:
+    the pipeline's numpy batching (``BatchingStats.seconds``) and the step
+    loop's wait on the host pipeline (``fetch_seconds``: batching and the
+    host-to-device copies), each per step."""
     from repro_torch.core.quality import evaluate
     from repro_torch.core.trainer import TrainSession
     from repro_torch.kernels import fullw2v
@@ -301,12 +346,23 @@ def phase_trainer(torch, np, args, tile: int, backend: str, expect: str,
     fullw2v.reset_launch_counts()
     sess.train(max_batches=args.batches)
     launches = dict(fullw2v.LAUNCHES)
+    seq = {k: v for k, v in fullw2v.SEQ_LAUNCHES.items() if v}
     batches = sess.state.batches_seen
     kernel = "cuda_tiled_fused" if sess.placement is not None else expect
     others = {k: v for k, v in launches.items() if k != kernel and v}
     if launches[kernel] != batches or batches != args.batches or others:
         raise AssertionError(f"{kernel}: {launches[kernel]} launches for "
                              f"{batches} batches ({launches})")
+    extra = {}
+    if kernel in ("cuda", "cuda_pipelined"):
+        # the main path's shape must take a compiled instantiation
+        want = fullw2v.seq_instantiation(cfg.fixed_window, cfg.negatives,
+                                         cfg.dim, cfg.resolved_pad_len)
+        if want not in fullw2v.SEQ_INSTANTIATIONS[:len(
+                fullw2v.SEQ_COMPILED)] or seq != {want: batches}:
+            raise AssertionError(f"{kernel} took {seq}, not the compiled "
+                                 f"{want} {batches} times")
+        extra = dict(instantiation=want)
     for name, t in sess.state.params().items():
         if not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{name} has non-finite values")
@@ -317,7 +373,8 @@ def phase_trainer(torch, np, args, tile: int, backend: str, expect: str,
         inv[i] = corpus.clusters[w]
     q = evaluate(sess.embeddings(), inv)
     step_s = sess.wall_seconds / batches
-    extra = {}
+    host = {"host_batching_s_per_step": pipe.stats.seconds / batches,
+            "host_wait_s_per_step": sess.fetch_seconds / batches}
     if sess.placement is not None:
         extra = dict(kernel=kernel, hot=sess.placement.hot,
                      cold=sess.placement.cold,
@@ -325,9 +382,10 @@ def phase_trainer(torch, np, args, tile: int, backend: str, expect: str,
     _line("trainer", T=tile, backend=sess.backend, S=cfg.sentences_per_batch,
           batches=batches, words_per_s=f"{sess.words_per_sec:.0f}",
           s_per_step=f"{step_s:.4f}", launches=launches[kernel],
+          **{k: f"{v:.4f}" for k, v in host.items()},
           separation=f"{q['separation']:.4f}",
           nn_purity=f"{q['nn_purity']:.4f}", **extra)
-    return sess, launches[kernel], step_s
+    return sess, launches[kernel], step_s, extra.get("instantiation"), host
 
 
 def sharded_hot_frac(np, pipe) -> float:
@@ -412,8 +470,10 @@ def phase_sharded_shape(torch, np, sess, step_s):
     b_ms, b_by = bound(np, ex.tokens, ex.negs, ex.lengths, cfg.dim,
                        cfg.fixed_window, extra)
     share = ms / (step_s * 1e3)
+    windows = int(batch.lengths.sum())
     out = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b_ms,
-               bound_by=b_by, windows=int(batch.lengths.sum()),
+               bound_by=b_by, windows=windows,
+               us_per_window=ms * 1e3 / windows,
                S=int(batch.tokens.shape[0]), exchange_ms=exchange_ms,
                hot=pl.hot, R=ex.request_width, cold_rows=ex.n_distinct[0],
                step_share=share)
@@ -422,6 +482,7 @@ def phase_sharded_shape(torch, np, sess, step_s):
           cold_rows=ex.n_distinct[0], max_abs_err=f"{err:.3e}",
           plain_ms=f"{plain_ms:.1f}")
     _line("timing", kernel="cuda_tiled_fused", ms_per_launch=f"{ms:.3f}",
+          us_per_window=f"{out['us_per_window']:.4f}",
           launches_per_step=1, bound_ms=f"{b_ms:.4f}", bound_by=b_by,
           windows=out["windows"], exchange_ms=f"{exchange_ms:.3f}",
           kernel_share_of_step=f"{share:.3f}")
@@ -432,8 +493,11 @@ def phase_main_shape(torch, np, pipe, cfg, names):
     """Each named kernel on the pipeline's first batch, at the shapes the
     main path gives it: held against its plain version on the same inputs
     (same tolerance as phase 3), then timed (CUDA events) beside its bound
-    and the plain version's time."""
-    from repro_torch.kernels import ops, registry
+    and the plain version's time. K1 and K2 report the instantiation they
+    took, and must equal each other and K3 at T=1 (its plan from
+    ``plan_tiles``) bit for bit."""
+    from repro_torch.data.batching import plan_tiles
+    from repro_torch.kernels import fullw2v, ops, registry
 
     batch = next(pipe.batches(pad_len=cfg.resolved_pad_len, epoch=0))
     step = batch.step_inputs(cfg.lr, torch.device("cuda"))
@@ -460,32 +524,51 @@ def phase_main_shape(torch, np, pipe, cfg, names):
     for name in names:
         be = registry.get(name)
         got = tables()
+        fullw2v.reset_launch_counts()
         be.update(*got, step, static)
         torch.cuda.synchronize()
+        took = [k for k, v in fullw2v.SEQ_LAUNCHES.items() if v]
         results[name] = (got[0].clone(), got[1].clone())
         err = max(_check_close(torch, f"{name} w_in (main shape)", got[0],
                                want[0]),
                   _check_close(torch, f"{name} w_out (main shape)", got[1],
                                want[1]))
         ms = _time_ms(torch, lambda: be.update(*got, step, static), 2)
+        windows = int(batch.lengths.sum())
         out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                         bound_ms=b_ms, bound_by=b_by,
-                         windows=int(batch.lengths.sum()),
+                         bound_ms=b_ms, bound_by=b_by, windows=windows,
+                         us_per_window=ms * 1e3 / windows,
                          S=int(batch.tokens.shape[0]))
+        inst = {}
+        if took:
+            out[name]["instantiation"] = took[0]
+            inst = dict(instantiation=took[0])
         _line("main-shape", kernel=name, S=out[name]["S"],
               L=int(batch.tokens.shape[1]), max_abs_err=f"{err:.3e}",
-              plain_ms=f"{plain_ms:.1f}")
+              plain_ms=f"{plain_ms:.1f}", **inst)
         _line("timing", kernel=name, ms_per_launch=f"{ms:.3f}",
+              us_per_window=f"{out[name]['us_per_window']:.4f}",
               launches_per_step=1, bound_ms=f"{b_ms:.4f}", bound_by=b_by,
-              windows=out[name]["windows"])
+              windows=windows)
         if not bool(torch.isfinite(got[0]).all()):
             raise AssertionError(f"{name}: timing runs produced non-finite "
                                  f"tables")
     if "cuda" in results and "cuda_pipelined" in results:
-        k1, k2 = results["cuda"], results["cuda_pipelined"]
-        if not (torch.equal(k1[0], k2[0]) and torch.equal(k1[1], k2[1])):
-            raise AssertionError("cuda_pipelined is not bit-identical to "
-                                 "cuda at the main path's shape")
+        plan = plan_tiles(batch.tokens, batch.negs, batch.lengths, 1)
+        p1 = [torch.from_numpy(a).cuda() for a in (
+            plan.uniq, plan.scatter, plan.ucount, plan.strict)]
+        got = tables()
+        fullw2v.fullw2v_cuda_tiled(*got, step.tokens, step.negs,
+                                   step.lengths, step.lr, static.w_f, 1, *p1)
+        torch.cuda.synchronize()
+        k1 = results["cuda"]
+        for other, k in (("cuda_pipelined", results["cuda_pipelined"]),
+                         ("cuda_tiled(T=1)", got)):
+            if not (torch.equal(k1[0], k[0]) and torch.equal(k1[1], k[1])):
+                raise AssertionError(f"{other} is not bit-identical to cuda "
+                                     f"at the main path's shape")
+        _line("main-shape", bitwise="cuda_pipelined==cuda==cuda_tiled(T=1)",
+              S=int(batch.tokens.shape[0]))
     return out
 
 
@@ -534,18 +617,19 @@ def main(argv=None) -> int:
 
     # 4. the main path: TrainSession, auto backend, then cuda by name, then
     # the vocab-sharded session (K4)
-    sess1, n_pipe, s_pipe = phase_trainer(
+    sess1, n_pipe, s_pipe, inst_pipe, h_pipe = phase_trainer(
         torch, np, args, 1, "auto", "cuda_pipelined")
     while s_pipe > 60 and args.S >= 2:      # keep the run inside its limit
         args.S //= 2
         _line("trainer", note="ordered step over 60 s", S_halved_to=args.S)
-        sess1, n_pipe, s_pipe = phase_trainer(
+        sess1, n_pipe, s_pipe, inst_pipe, h_pipe = phase_trainer(
             torch, np, args, 1, "auto", "cuda_pipelined")
-    sess8, n_tiled, s_tiled = phase_trainer(
+    sess8, n_tiled, s_tiled, _, h_tiled = phase_trainer(
         torch, np, args, 8, "auto", "cuda_tiled")
-    _, n_seq, s_seq = phase_trainer(torch, np, args, 1, "cuda", "cuda")
+    _, n_seq, s_seq, inst_seq, h_seq = phase_trainer(torch, np, args, 1,
+                                                     "cuda", "cuda")
     frac = sharded_hot_frac(np, sess8.pipeline)
-    sess_vs, n_fused, s_fused = phase_trainer(
+    sess_vs, n_fused, s_fused, _, h_fused = phase_trainer(
         torch, np, args, 8, "auto", "cuda_tiled", vocab_shard=True,
         hot_vocab_frac=frac)
     if not np.array_equal(sess_vs.embeddings(), sess8.embeddings()):
@@ -557,6 +641,8 @@ def main(argv=None) -> int:
                 "cuda_tiled": n_tiled, "cuda_tiled_fused": n_fused}
     step_s = {"cuda": s_seq, "cuda_pipelined": s_pipe, "cuda_tiled": s_tiled,
               "cuda_tiled_fused": s_fused}
+    host = {"cuda": h_seq, "cuda_pipelined": h_pipe, "cuda_tiled": h_tiled,
+            "cuda_tiled_fused": h_fused}
 
     # 5. each kernel at the trainer's batch shape: parity, then time
     timing = phase_main_shape(torch, np, sess1.pipeline, sess1.cfg,
@@ -565,6 +651,11 @@ def main(argv=None) -> int:
                                    ["cuda_tiled"]))
     timing["cuda_tiled_fused"] = phase_sharded_shape(torch, np, sess_vs,
                                                      s_fused)
+    files = {"cuda": "src/repro_torch/kernels/csrc/seq.cuh",
+             "cuda_pipelined": "src/repro_torch/kernels/csrc/seq.cuh",
+             "cuda_tiled": "src/repro_torch/kernels/csrc/fullw2v.cu",
+             "cuda_tiled_fused": "src/repro_torch/kernels/csrc/fullw2v.cu"}
+    trained_with = {"cuda": inst_seq, "cuda_pipelined": inst_pipe}
     sources = {"cuda": ("_kernel", "src/repro/kernels/fullw2v.py:284"),
                "cuda_pipelined": ("_kernel_pipelined",
                                   "src/repro/kernels/fullw2v.py:376"),
@@ -577,7 +668,7 @@ def main(argv=None) -> int:
     for name in ("cuda", "cuda_pipelined", "cuda_tiled", "cuda_tiled_fused"):
         row = {
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/fullw2v.cu",
+            "source": files[name],
             "replaces": sources[name][1], "replaces_fn": sources[name][0],
             "launches": launches[name],
             "max_abs_err": timing[name]["max_abs_err"],
@@ -590,10 +681,15 @@ def main(argv=None) -> int:
             "small_ms": small[name]["small_ms"],
             "small_plain_ms": small[name]["plain_ms"],
             "step_s": step_s[name],
+            **host[name],
+            "us_per_window": timing[name]["us_per_window"],
             "windows_per_launch": timing[name]["windows"],
             "sentences_per_batch": timing[name]["S"],
             "small_shape": "S=8 L=96 V=4096 d=128 N=5 W_f=3",
         }
+        if name in trained_with:
+            row["instantiation"] = timing[name]["instantiation"]
+            row["trainer_instantiation"] = trained_with[name]
         if name == "cuda_tiled_fused":
             row.update({k: timing[name][k] for k in (
                 "exchange_ms", "hot", "R", "cold_rows", "step_share")})

@@ -95,16 +95,21 @@ def resolve_device(device) -> torch.device:
 
 
 def init_state(vocab_size: int, cfg: W2VConfig, seed: int = 0,
-               device="cpu", placement=None) -> TrainState:
+               device=None, placement=None) -> TrainState:
     """Mikolov init: w_in ~ U(-0.5/d, 0.5/d), w_out = 0, drawn from a CPU
     ``torch.Generator`` seeded with ``seed`` (the same tables on every
     device; different numbers from the reference's ``jax.random`` — use
     ``repro_torch.convert.params_from_reference`` to start from the
     reference's tables).
 
+    ``device`` resolves as a session's does (:func:`resolve_device`):
+    ``None`` puts the tables on the GPU and raises without one; the CPU
+    takes them only when asked for by name.
+
     With a ``placement`` (vocab sharding) the *same* full-table init is
     drawn and then split hot/cold, so a sharded session starts from
     exactly the tables a replicated one would."""
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     d = cfg.dim
     w_in = (torch.rand((vocab_size, d), generator=gen,

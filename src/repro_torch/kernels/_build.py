@@ -22,7 +22,7 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fullw2v.cu",)
-HEADERS = ("window.cuh",)
+HEADERS = ("seq.cuh", "window.cuh")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -65,6 +65,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fullw2v_seq_launch.argtypes = [p, p, p, p, p, f, i, i, i, i, i, i, p]
     lib.fullw2v_seq_launch.restype = i
+    lib.fullw2v_seq_variant.argtypes = [p, p, i, i, i, i]
+    lib.fullw2v_seq_variant.restype = i
+    lib.fullw2v_seq_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.fullw2v_seq_smem_bytes.restype = ctypes.c_longlong
     lib.fullw2v_tiled_launch.argtypes = [p, p, p, p, p, p, p, p, p, f,
                                          i, i, i, i, i, i, i, p]
     lib.fullw2v_tiled_launch.restype = i

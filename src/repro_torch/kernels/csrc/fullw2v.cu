@@ -2,73 +2,64 @@
 // for ctypes (built by repro_torch/kernels/_build.py).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/fullw2v.py:
-//   fullw2v_seq      <- _kernel            (:284-369, via fullw2v_pallas)
-//   fullw2v_pipelined<- _kernel_pipelined  (:376-530, fullw2v_pallas with
+//   seq_kernel<.., PIPELINE=false>  (K1, seq.cuh)
+//                    <- _kernel            (:284, via fullw2v_pallas :903)
+//   seq_kernel<.., PIPELINE=true>   (K2, seq.cuh)
+//                    <- _kernel_pipelined  (:376, fullw2v_pallas with
 //                                           pipeline=True)
-//   fullw2v_tiled<PlainTable>
+//   fullw2v_tiled<PlainTable>       (K3)
 //                    <- _kernel_tiled      (:537-855, hot_rows=0,
 //                                           prefetch=False, via
 //                                           fullw2v_pallas_tiled)
-//   fullw2v_tiled<SplitTable>
+//   fullw2v_tiled<SplitTable>       (K4)
 //                    <- _kernel_tiled      (:537-855, hot_rows>0,
 //                                           prefetch=True, via
 //                                           fullw2v_pallas_tiled_fused,
 //                                           pallas_call at :1078)
 //
-// What bounds them on this card: latency. The reference orders every
-// window of a batch after the previous one (its grid is sequential and
-// batch_sgns_ref scans), so one window's few KB of row traffic and few
-// thousand FLOPs sit on one dependent chain: global loads, a block-wide
-// reduction, the write-back. Neither the 3.35 TB/s of HBM nor the f32 FMA
-// peak is near; the time per window is the sum of those latencies.
+// What bounds them on this card: the latency of one ordered chain. The
+// reference orders every window of a batch after the previous one (its grid
+// is sequential and batch_sgns_ref scans), so one CTA walks them all and a
+// window's few KB of rows and ~15K FLOPs cost the sum of the latencies on
+// its chain: row loads, the pair reductions, a sigmoid, barriers, the update
+// and its stores. Neither the 3.35 TB/s of HBM nor the f32 FMA peak is near.
 //
-// What the design does about it: it keeps the order (one CTA loops over
-// the sentences; a CTA per sentence, Hogwild across SMs, would break parity
-// with the reference and is left to a later kernel) and shortens the
-// chain. The ring of context rows stays in shared memory for the lifetime
-// of each row (loaded once, stored once); output rows are fetched once per
-// window (K1), prefetched with cp.async one window ahead (K2), or fetched
-// once per tile of T windows and updated in groups of G windows (K3). A
-// window's (or a tile's) row loads are issued together, up to kRowBatch in
-// flight, so their latencies overlap; each warp reduces several
-// (context, output) pairs at once for the same reason.
-// window.cuh holds the shared update and the column-ownership rule that
-// makes cross-thread fences unnecessary.
+// What the design does about it: it keeps the order (a CTA per sentence,
+// Hogwild across SMs, would break parity with the reference and is left to a
+// later kernel) and shortens the chain.
+// - K1 and K2 are one body, seq.cuh's seq_kernel, compiled for the shapes
+//   the project runs (kSeqCompiled below) and once more with runtime shapes
+//   for any other. Indices are staged per sentence in shared memory, so a
+//   row costs one global round trip; a window's rows are issued together as
+//   16-byte cp.async; the ring is indexed by a running head; each thread
+//   keeps one column of the window's rows in registers for the update; seven
+//   warps reduce all the window's pairs at once while an eighth, the
+//   producer, computes the next window's hazard mask from the staged indices
+//   by one ballot and (K2) issues its rows while window t computes. seq.cuh's
+//   header gives the details and the order of every sum.
+// - K3 keeps the ring of context rows in shared memory for the lifetime of
+//   each row (loaded once, stored once), fetches a tile of T windows' output
+//   rows once and updates them in groups of G windows; window.cuh holds its
+//   update and the column-ownership rule that makes cross-thread fences
+//   unnecessary.
 //
 // K4 is K3's body instantiated on the split working table of a
 // vocab-sharded step (SplitTable: hot replica + gathered cold block, routed
 // by id < hot), so the step never materializes concat(hot, got) and K4
 // equals K3 on that concatenation bit for bit. The reference's cross-tile
 // prefetch of the next tile's unique rows (prefetch=True, guarded by
-// was_prefetched, fullw2v.py:617-636) is not built: K2's prefetch ran
-// slower than K1 on this card, and K4 loads a tile's rows as K3 does.
+// was_prefetched, fullw2v.py:617-636) is not built: K4 loads a tile's rows
+// as K3 does.
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "seq.cuh"
 #include "window.cuh"
 
 namespace fullw2v {
-
-// ---------------------------------------------------------------------------
-// cp.async helpers (K2's prefetch): 4-byte copies, one column per thread
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // Output row j of window t: the target for j = 0, else negative j-1.
 __device__ __forceinline__ int out_row(const int* tok, const int* ng, int t,
@@ -76,12 +67,12 @@ __device__ __forceinline__ int out_row(const int* tok, const int* ng, int t,
   return j == 0 ? __ldg(tok + t) : __ldg(ng + (size_t)t * n_neg + j - 1);
 }
 
-// The ring of one sentence: slot = position mod rows. Table is the input
+// K3's ring of one sentence: slot = position mod rows. Table is the input
 // table's row accessor (window.cuh); the slot math never sees it.
 template <typename Table>
 struct Ring {
   float* rows;
-  int n;                 // ring rows: 2*w_f+1 sequential, T+2*w_f tiled
+  int n;                 // ring rows: T+2*w_f
   Table w_in;
   const int* tok;
   int d;
@@ -92,8 +83,9 @@ struct Ring {
   __device__ __forceinline__ void store(int p) const {  // slot -> w_in
     store_row(w_in.row(__ldg(tok + p)), rows + (size_t)(p % n) * d, d);
   }
-  // Seed-kernel advance for window t: store the r_seq-distance evictee
-  // (its windows are complete), then load the leading edge.
+  // The sequential advance for window t (r_seq = 2*w_f+1): store the
+  // r_seq-distance evictee (its windows are complete), then load the
+  // leading edge.
   __device__ __forceinline__ void advance(int t, int w_f, int r_seq,
                                           int length) const {
     const int q = t + w_f;
@@ -115,8 +107,9 @@ struct Ring {
   }
 };
 
-// One strictly ordered window: gather, fetch the m output rows, update,
-// write them back (the reference's _seq_window, fullw2v.py:239-277).
+// One strictly ordered window of a strict K3 tile: gather, fetch the m
+// output rows, update, write them back (the reference's _seq_window,
+// fullw2v.py:239-277).
 template <typename Table>
 __device__ __forceinline__ void seq_window(const Ring<Table>& ring,
                                            const Table& w_out,
@@ -134,128 +127,6 @@ __device__ __forceinline__ void seq_window(const Ring<Table>& ring,
   for (int b = 0; b < m; ++b)
     store_row(w_out.row(out_row(ring.tok, ng, t, b, n_neg)),
               out + (size_t)b * d, d);
-}
-
-// ---------------------------------------------------------------------------
-// K1: sequential, one window per step
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-fullw2v_seq(float* w_in_base, float* w_out_base,
-            const int* __restrict__ tokens,
-            const int* __restrict__ negs, const int* __restrict__ lengths,
-            float lr, int S, int L, int n_neg, int d, int w_f) {
-  extern __shared__ float smem[];
-  const int r = 2 * w_f + 1;
-  const int K = 2 * w_f;
-  const int m = n_neg + 1;
-  float* ring_rows = smem;                       // [r][d]
-  float* ctx = ring_rows + (size_t)r * d;        // [K][d]
-  float* out = ctx + (size_t)K * d;              // [m][d]
-  float* g = out + (size_t)m * d;                // [K*m]
-  const PlainTable w_in{w_in_base, d}, w_out{w_out_base, d};
-
-  for (int s = 0; s < S; ++s) {
-    const int length = __ldg(lengths + s);
-    const int* tok = tokens + (size_t)s * L;
-    const int* ng = negs + (size_t)s * L * n_neg;
-    const Ring<PlainTable> ring{ring_rows, r, w_in, tok, d};
-    ring.preload(w_f, L, length);
-    for (int t = 0; t < length; ++t) {
-      ring.advance(t, w_f, r, length);
-      seq_window(ring, w_out, ng, ctx, out, g, t, w_f, n_neg, length, lr);
-    }
-    ring.flush(r, length);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K2: K1 plus prefetch of window t+1's output rows while window t computes
-// ---------------------------------------------------------------------------
-
-// Does output row j of window t collide with any output row of window t-1
-// (t >= 1)? The reference's conflicts_prev (fullw2v.py:414-421).
-__device__ __forceinline__ bool conflicts_prev(const int* tok, const int* ng,
-                                               int t, int j, int n_neg) {
-  const int idx = out_row(tok, ng, t, j, n_neg);
-  bool hit = false;
-#pragma unroll 8
-  for (int i = 0; i <= n_neg; ++i)
-    hit |= idx == out_row(tok, ng, t - 1, i, n_neg);
-  return hit;
-}
-
-// Begin async loads of window t's non-colliding rows into buffer `buf`.
-__device__ __forceinline__ void start_prefetch(float* buf,
-                                               const PlainTable& w_out,
-                                               const int* tok, const int* ng,
-                                               int t, int n_neg, int d) {
-  for (int b = 0; b <= n_neg; ++b) {
-    if (t > 0 && conflicts_prev(tok, ng, t, b, n_neg)) continue;
-    const float* src = w_out.row(out_row(tok, ng, t, b, n_neg));
-    float* dst = buf + (size_t)b * d;
-    for (int j = threadIdx.x; j < d; j += blockDim.x)
-      cp_async4(dst + j, src + j);
-  }
-  cp_async_commit();
-}
-
-__global__ void __launch_bounds__(kThreads)
-fullw2v_pipelined(float* w_in_base, float* w_out_base,
-                  const int* __restrict__ tokens,
-                  const int* __restrict__ negs,
-                  const int* __restrict__ lengths, float lr, int S, int L,
-                  int n_neg, int d, int w_f) {
-  extern __shared__ float smem[];
-  const int r = 2 * w_f + 1;
-  const int K = 2 * w_f;
-  const int m = n_neg + 1;
-  float* ring_rows = smem;                       // [r][d]
-  float* ctx = ring_rows + (size_t)r * d;        // [K][d]
-  float* out2 = ctx + (size_t)K * d;             // [2][m][d] double buffer
-  float* g = out2 + (size_t)2 * m * d;           // [K*m]
-  const PlainTable w_in{w_in_base, d}, w_out{w_out_base, d};
-
-  for (int s = 0; s < S; ++s) {
-    const int length = __ldg(lengths + s);
-    const int* tok = tokens + (size_t)s * L;
-    const int* ng = negs + (size_t)s * L * n_neg;
-    const Ring<PlainTable> ring{ring_rows, r, w_in, tok, d};
-    ring.preload(w_f, L, length);
-    if (length > 0) start_prefetch(out2, w_out, tok, ng, 0, n_neg, d);
-
-    for (int t = 0; t < length; ++t) {
-      float* out = out2 + (size_t)(t & 1) * m * d;
-      float* nxt = out2 + (size_t)((t + 1) & 1) * m * d;
-      ring.advance(t, w_f, r, length);
-
-      // this window's prefetched rows; colliding rows load now, after
-      // window t-1's write-back
-      cp_async_wait_all();
-      if (t > 0)
-        for (int b = 0; b < m; ++b)
-          if (conflicts_prev(tok, ng, t, b, n_neg))
-            load_row(out + (size_t)b * d,
-                     w_out.row(out_row(tok, ng, t, b, n_neg)), d);
-
-      // overlap: window t+1's rows stream in while window t computes. The
-      // other warps finished reading `nxt` (window t-1) before the last
-      // barrier of its update; the fence orders window t-1's write-back
-      // before these reads of the same rows
-      if (t + 1 < length) {
-        __threadfence_block();
-        start_prefetch(nxt, w_out, tok, ng, t + 1, n_neg, d);
-      }
-
-      gather_ctx(ring.rows, r, ctx, t, w_f, length, d);
-      window_group_update(ring.rows, r, ctx, out, nullptr, nullptr, g, 1, t,
-                          length, w_f, m, d, lr);
-      for (int b = 0; b < m; ++b)
-        store_row(w_out.row(out_row(tok, ng, t, b, n_neg)),
-                  out + (size_t)b * d, d);
-    }
-    ring.flush(r, length);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -347,11 +218,67 @@ fullw2v_tiled(Table w_in, Table w_out, const int* __restrict__ tokens,
   }
 }
 
-// Dynamic shared memory per kernel, in bytes.
-size_t seq_smem(int d, int w_f, int n_neg, int pipeline) {
-  const int r = 2 * w_f + 1, K = 2 * w_f, m = n_neg + 1;
-  return sizeof(float) *
-         ((size_t)(r + K + (pipeline ? 2 : 1) * m) * d + (size_t)K * m);
+// K1/K2 instantiations: the compiled (w_f, N) shapes at d = kSeqD, then the
+// runtime-shaped body with indices staged and with indices read in place.
+// repro_torch/kernels/fullw2v.py's SEQ_INSTANTIATIONS lists the same, in
+// this order.
+struct SeqShapeId {
+  int w_f, n_neg;
+};
+constexpr SeqShapeId kSeqCompiled[] = {{2, 3}, {2, 5}, {3, 5}, {5, 5}};
+constexpr int kSeqCompiledCount = 4;
+constexpr int kSeqRuntime = kSeqCompiledCount;
+constexpr int kSeqRuntimeUnstaged = kSeqCompiledCount + 1;
+
+using SeqKernel = void (*)(float*, float*, const int*, const int*,
+                           const int*, float, int, int, int, int, int);
+
+template <bool PIPELINE>
+SeqKernel seq_kernel_of(int variant) {
+  switch (variant) {
+    case 0: return seq_kernel<2, 3, PIPELINE, true>;
+    case 1: return seq_kernel<2, 5, PIPELINE, true>;
+    case 2: return seq_kernel<3, 5, PIPELINE, true>;
+    case 3: return seq_kernel<5, 5, PIPELINE, true>;
+    case kSeqRuntime: return seq_kernel<0, 0, PIPELINE, true>;
+    default: return seq_kernel<0, 0, PIPELINE, false>;
+  }
+}
+
+// Dynamic shared memory of K1/K2, in bytes: ring [2w_f+2][d], output rows
+// [2][N+1][d], g [2w_f(N+1)] padded to 4, 4 words for the hazard mask, and
+// when staged two index buffers of pad4(L + L*N + 1) ints.
+size_t seq_smem(int d, int w_f, int n_neg, int L, bool staged) {
+  const size_t K = 2 * (size_t)w_f, M = (size_t)n_neg + 1, R = K + 2;
+  size_t words = R * d + 2 * M * d + ((K * M + 3) & ~(size_t)3) + 4;
+  if (staged) words += 2 * (((size_t)L + (size_t)L * n_neg + 1 + 3) &
+                            ~(size_t)3);
+  return sizeof(float) * words;
+}
+
+// The instantiation a launch takes: a compiled shape when (w_f, N) is listed,
+// d = kSeqD, both tables 16-byte aligned and the staged layout fits; else the
+// runtime-shaped body, staged when that fits.
+int seq_variant(const void* w_in, const void* w_out, int d, int w_f,
+                int n_neg, int L, size_t limit) {
+  const bool aligned = reinterpret_cast<uintptr_t>(w_in) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w_out) % 16 == 0;
+  const bool fits = seq_smem(d, w_f, n_neg, L, true) <= limit;
+  if (d == kSeqD && aligned && fits)
+    for (int i = 0; i < kSeqCompiledCount; ++i)
+      if (kSeqCompiled[i].w_f == w_f && kSeqCompiled[i].n_neg == n_neg)
+        return i;
+  return fits ? kSeqRuntime : kSeqRuntimeUnstaged;
+}
+
+cudaError_t smem_limit(size_t* limit) {
+  int dev = 0, value = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&value,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *limit = (size_t)value;
+  return err;
 }
 
 size_t tiled_smem(int d, int w_f, int n_neg, int tile, int G) {
@@ -383,14 +310,38 @@ int fullw2v_seq_launch(void* w_in, void* w_out, const void* tokens,
                        const void* negs, const void* lengths, float lr, int S,
                        int L, int n_neg, int d, int w_f, int pipeline,
                        void* stream) {
-  const size_t smem = fullw2v::seq_smem(d, w_f, n_neg, pipeline);
-  auto kernel = pipeline ? fullw2v::fullw2v_pipelined : fullw2v::fullw2v_seq;
-  cudaError_t err = fullw2v::prepare(kernel, smem);
+  size_t limit = 0;
+  cudaError_t err = fullw2v::smem_limit(&limit);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<1, fullw2v::kThreads, smem, (cudaStream_t)stream>>>(
+  const int variant =
+      fullw2v::seq_variant(w_in, w_out, d, w_f, n_neg, L, limit);
+  const size_t smem = fullw2v::seq_smem(
+      d, w_f, n_neg, L, variant != fullw2v::kSeqRuntimeUnstaged);
+  fullw2v::SeqKernel kernel = pipeline ? fullw2v::seq_kernel_of<true>(variant)
+                                       : fullw2v::seq_kernel_of<false>(variant);
+  err = fullw2v::prepare(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<1, fullw2v::kSeqThreads, smem, (cudaStream_t)stream>>>(
       (float*)w_in, (float*)w_out, (const int*)tokens, (const int*)negs,
       (const int*)lengths, lr, S, L, n_neg, d, w_f);
   return (int)cudaGetLastError();
+}
+
+// The K1/K2 instantiation fullw2v_seq_launch takes for these arguments (an
+// index into the list above kSeqCompiled), or -1 when the device cannot be
+// queried.
+int fullw2v_seq_variant(const void* w_in, const void* w_out, int d, int w_f,
+                        int n_neg, int L) {
+  size_t limit = 0;
+  if (fullw2v::smem_limit(&limit) != cudaSuccess) return -1;
+  return fullw2v::seq_variant(w_in, w_out, d, w_f, n_neg, L, limit);
+}
+
+// K1/K2's dynamic shared memory in bytes (staged = 0: indices read in
+// place).
+long long fullw2v_seq_smem_bytes(int d, int w_f, int n_neg, int L,
+                                 int staged) {
+  return (long long)fullw2v::seq_smem(d, w_f, n_neg, L, staged != 0);
 }
 
 // K3 over one batch with its tile plan, in place.

@@ -4,10 +4,15 @@
 // src/repro/kernels/fullw2v.py share: _window_update (:157-182),
 // _gather_window_ctx (:192-201), _scatter_window_ctx (:204-213) and the
 // label/mask helpers (:216-236), and the _Table row router (:101-155)
-// of the split-table kernel (PlainTable/SplitTable). Every kernel in fullw2v.cu
-// calls window_group_update for its arithmetic, so the sequential,
-// pipelined, tiled and split-table kernels agree bit for bit wherever
-// their inputs agree.
+// of the split-table kernel (PlainTable/SplitTable).
+//
+// Who uses it: the tiled kernels K3 and K4 (fullw2v.cu) run
+// window_group_update for their arithmetic. The sequential kernels K1 and
+// K2, which replace _kernel (:284) and _kernel_pipelined (:376), have their
+// own body (seq.cuh) built for the latency of one window; it shares
+// kThreads and stable_sigmoid from here and keeps every sum of
+// window_group_update in the same order, so K1, K2 and K3 at T=1 agree bit
+// for bit wherever their inputs agree.
 //
 // What bounds it on this card: latency, not bytes or FLOPs. A window moves
 // about (2*(N+1) + 2) rows of d floats and does 3*2*K*(N+1)*d FLOPs, a few
@@ -21,12 +26,12 @@
 // global load and store of its columns, so program order inside one thread
 // keeps the reference's store-then-load order on repeated tokens with no
 // fence across threads. Context ring, gathered context rows and output
-// rows live in shared memory (the paper's register/shared caching, the
-// reference's VMEM scratch). Only the K x (N+1) dot products cross
-// columns: each warp takes a subset of the pairs, kPairsInFlight at a
-// time, and reduces over d with lanes on consecutive columns and a fixed
-// xor-shuffle tree, so the sums are deterministic. Arithmetic is plain f32 FMA and expf in the
-// two-branch stable sigmoid of core/sgns.py (no tensor cores, no TF32).
+// rows live in shared memory (the reference's VMEM scratch). Only the
+// K x (N+1) dot products cross columns: each warp takes a subset of the
+// pairs, kPairsInFlight at a time, and reduces over d with lanes on
+// consecutive columns and a fixed xor-shuffle tree, so the sums are
+// deterministic. Arithmetic is plain f32 FMA and expf in the two-branch
+// stable sigmoid of core/sgns.py (no tensor cores, no TF32).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -5,7 +5,10 @@ The port's counterpart of ``repro.kernels.fullw2v``'s host entry points:
 * :func:`fullw2v_cuda` — the sequential kernel (``pipeline=False``, backend
   ``cuda``, replacing ``_kernel``) or its prefetching form
   (``pipeline=True``, backend ``cuda_pipelined``, replacing
-  ``_kernel_pipelined``); bit-identical to each other.
+  ``_kernel_pipelined``); one body (``csrc/seq.cuh``), bit-identical to
+  each other. The body is compiled for the shapes in :data:`SEQ_COMPILED`
+  and once with runtime shapes for any other; :func:`seq_instantiation`
+  says which a launch takes and :data:`SEQ_LAUNCHES` counts them.
 * :func:`fullw2v_cuda_tiled` — the window-tiled kernel (backend
   ``cuda_tiled``, replacing ``_kernel_tiled``), driven by the host tile
   plan; bit-identical to the sequential kernel at T=1.
@@ -44,10 +47,61 @@ from repro_torch.kernels import ref as _ref
 LAUNCHES: Dict[str, int] = {"cuda": 0, "cuda_pipelined": 0, "cuda_tiled": 0,
                             "cuda_tiled_fused": 0}
 
+# K1/K2's instantiations, in the order of csrc/fullw2v.cu's seq_kernel_of:
+# the compiled (w_f, N) shapes at d = SEQ_ROW_WIDTH, then the runtime-shaped
+# body with the indices staged in shared memory and with them read in place
+SEQ_COMPILED: Tuple[Tuple[int, int], ...] = ((2, 3), (2, 5), (3, 5), (5, 5))
+SEQ_ROW_WIDTH = 128
+SEQ_INSTANTIATIONS: Tuple[str, ...] = tuple(
+    f"wf{w_f}_n{n}_d{SEQ_ROW_WIDTH}" for w_f, n in SEQ_COMPILED) + (
+    "runtime", "runtime_unstaged")
+# dynamic shared memory one block may opt into on an H100 (sm_90): 227 KB
+SMEM_LIMIT = 232_448
+
+# K1/K2 launches per instantiation (which body a run went through)
+SEQ_LAUNCHES: Dict[str, int] = {name: 0 for name in SEQ_INSTANTIATIONS}
+
+
 def reset_launch_counts() -> None:
-    """Zero every kernel's launch count."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Zero every kernel's launch count and the per-instantiation counts."""
+    for counts in (LAUNCHES, SEQ_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def seq_smem_bytes(w_f: int, n_neg: int, d: int, L: int,
+                   staged: bool = True) -> dict:
+    """K1/K2's dynamic shared memory in bytes, buffer by buffer (the
+    mirror of ``seq_smem`` in ``csrc/fullw2v.cu``): the context ring of
+    ``2*w_f + 2`` rows, two buffers of ``N+1`` output rows, ``g`` padded to a
+    multiple of 4 floats, 4 words for the hazard mask and, when ``staged``,
+    two buffers of one sentence's indices (tokens, negatives and length,
+    padded to 4 ints)."""
+    K, m = 2 * w_f, n_neg + 1
+    out = {"ring": 4 * (K + 2) * d, "out_rows": 4 * 2 * m * d,
+           "g": 4 * _pad4(K * m), "flags": 4 * 4,
+           "indices": 4 * 2 * _pad4(L + L * n_neg + 1) if staged else 0}
+    out["total"] = sum(out.values())
+    return out
+
+
+def seq_instantiation(w_f: int, n_neg: int, d: int, L: int,
+                      aligned: bool = True, limit: int = SMEM_LIMIT) -> str:
+    """The K1/K2 instantiation a launch takes (the mirror of
+    ``seq_variant`` in ``csrc/fullw2v.cu``): the compiled shape when
+    ``(w_f, n_neg)`` is in :data:`SEQ_COMPILED`, ``d`` is
+    :data:`SEQ_ROW_WIDTH`, both tables are 16-byte aligned (``aligned``) and
+    the staged layout fits in ``limit`` bytes; else the runtime-shaped body,
+    with staged indices when they fit and read in place when not."""
+    fits = seq_smem_bytes(w_f, n_neg, d, L)["total"] <= limit
+    if d == SEQ_ROW_WIDTH and aligned and fits and \
+            (w_f, n_neg) in SEQ_COMPILED:
+        return SEQ_INSTANTIATIONS[SEQ_COMPILED.index((w_f, n_neg))]
+    return "runtime" if fits else "runtime_unstaged"
 
 
 def tiled_scratch_rows(tile: int, w_f: int, n_neg: int,
@@ -153,20 +207,28 @@ def fullw2v_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One FULL-W2V pass over a batch of sentences, in strict sentence and
     window order, updating ``w_in``/``w_out`` in place. ``pipeline``
-    selects the prefetching kernel (same results, bit for bit)."""
+    selects the prefetching kernel (same results, bit for bit). The launch
+    counts in :data:`LAUNCHES` and, under the instantiation it took, in
+    :data:`SEQ_LAUNCHES`."""
     S, L, N, d = _check_batch(w_in, w_out, tokens, negs, lengths)
     _require_cuda(w_in, w_out, tokens, negs, lengths)
     from repro_torch.kernels._build import load
     lib = load().lib
+    name = "cuda_pipelined" if pipeline else "cuda"
     with torch.cuda.device(w_in.device):
+        variant = lib.fullw2v_seq_variant(w_in.data_ptr(), w_out.data_ptr(),
+                                          d, w_f, N, L)
+        if variant < 0:
+            raise RuntimeError(f"{name}: cannot query the device's shared "
+                               f"memory limit")
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fullw2v_seq_launch(
             w_in.data_ptr(), w_out.data_ptr(), tokens.data_ptr(),
             negs.data_ptr(), lengths.data_ptr(), _ref.lr32(lr), S, L, N, d,
             w_f, int(pipeline), stream)
-    name = "cuda_pipelined" if pipeline else "cuda"
     _raise_on_error(lib, err, name)
     LAUNCHES[name] += 1
+    SEQ_LAUNCHES[SEQ_INSTANTIATIONS[variant]] += 1
     return w_in, w_out
 
 

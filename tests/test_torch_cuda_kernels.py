@@ -6,7 +6,10 @@ GPU and nvcc; skipped elsewhere). Run on a GPU machine with
 Tolerance: atol 2e-5, rtol 1e-4 (the JAX package's kernel tolerance); the
 prefetching kernel and the tiled kernel at T=1 must equal the sequential
 kernel bit for bit, and the split-table kernel (K4) the tiled kernel on
-``concat(hot, got)``."""
+``concat(hot, got)``. The sequential kernels are also run on batches built
+to hit every hazard of K2's prefetch, at each compiled shape, at a shape
+outside the list, on unaligned tables and with indices too large to
+stage."""
 import numpy as np
 import pytest
 import torch
@@ -156,6 +159,139 @@ def test_fused_kernel_all_hot_and_out_of_range_ids(dev):
                                          short[3][:10].clone(), *idx, 0.05,
                                          3, 4, *p)
     assert fullw2v.LAUNCHES["cuda_tiled_fused"] == 0
+
+
+def _hazard_batch(seed, V, S, L, N, w_f, lengths):
+    """Tokens repeated at distance exactly 2*w_f+1 (the ring row K2
+    prefetches while the same token's earlier position is still being
+    updated), window t+1's target equal to a negative of window t and a
+    negative of window t+1 equal to window t's target, with the given
+    sentence lengths (0, 1, <= w_f and L among them)."""
+    rng = np.random.default_rng(seed)
+    r = 2 * w_f + 1
+    tokens = rng.integers(0, V, size=(S, L)).astype(np.int32)
+    for t in range(r, L, 3):
+        tokens[:, t] = tokens[:, t - r]
+    negs = make_distinct_negs(rng, tokens, V, N)
+    for s in range(S):
+        for t in range(0, L - 1, 4):
+            if t + 1 >= r and (t + 1 - r) % 3 == 0:
+                continue                  # keep that repeat
+            tokens[s, t + 1] = negs[s, t, rng.integers(N)]
+            negs[s, t + 1] = make_distinct_negs(
+                rng, tokens[s:s + 1, t + 1:t + 2], V, N)[0, 0]
+        for t in range(2, L - 1, 4):
+            if tokens[s, t] != tokens[s, t + 1] and \
+                    tokens[s, t] not in negs[s, t + 1]:
+                negs[s, t + 1, rng.integers(N)] = tokens[s, t]
+    return tokens, negs, np.asarray(lengths, np.int32)
+
+
+def _hazards(tokens, negs, lengths, w_f):
+    """Counts of each hazard class inside the sentences."""
+    r = 2 * w_f + 1
+    ring = target = neg = 0
+    for s, n in enumerate(lengths):
+        for t in range(int(n) - 1):
+            prev = {int(tokens[s, t]), *map(int, negs[s, t])}
+            target += int(tokens[s, t + 1]) in prev
+            neg += any(int(x) in prev for x in negs[s, t + 1])
+        ring += sum(int(tokens[s, q] == tokens[s, q - r])
+                    for q in range(r, int(n)))
+    return ring, target, neg
+
+
+def _sequential_all_ways(dev, tokens, negs, lengths, w_f, d=128, V=None,
+                         unaligned=False):
+    """K1, K2 and K3(T=1) on one batch: K1 within tolerance of the plain
+    version, K2 and K3(T=1) equal to K1 bit for bit; returns the
+    instantiations K1 and K2 took."""
+    V = V or int(max(tokens.max(), negs.max())) + 1
+    rng = np.random.default_rng(99)
+    w_in = (rng.normal(size=(V, d)) * 0.1).astype(np.float32)
+    w_out = (rng.normal(size=(V, d)) * 0.1).astype(np.float32)
+    put = lambda a: torch.from_numpy(a).to(dev)          # noqa: E731
+
+    def tables():
+        if not unaligned:
+            return put(w_in.copy()), put(w_out.copy())
+        out = []
+        for a in (w_in, w_out):   # a view one float into its storage
+            buf = torch.empty(a.size + 1, device=dev)
+            buf[1:] = put(a.ravel())
+            out.append(buf[1:].view(V, d))
+        return tuple(out)
+
+    idx = [put(tokens), put(negs), put(lengths)]
+    plan = plan_tiles(tokens, negs, lengths, 1)
+    p1 = [put(a) for a in (plan.uniq, plan.scatter, plan.ucount, plan.strict)]
+    want = ref.batch_sgns_ref(*tables(), *idx, 0.05, w_f)
+    fullw2v.reset_launch_counts()
+    k1 = fullw2v.fullw2v_cuda(*tables(), *idx, 0.05, w_f)
+    took = {k for k, v in fullw2v.SEQ_LAUNCHES.items() if v}
+    k2 = fullw2v.fullw2v_cuda(*tables(), *idx, 0.05, w_f, pipeline=True)
+    k3 = fullw2v.fullw2v_cuda_tiled(*tables(), *idx, 0.05, w_f, 1, *p1)
+    torch.cuda.synchronize()
+    _assert_close(k1, want)
+    assert all(torch.equal(a, b) for a, b in zip(k2, k1)), "K2 != K1"
+    assert all(torch.equal(a, b) for a, b in zip(k3, k1)), "K3(T=1) != K1"
+    assert not torch.equal(k1[0], tables()[0]), "w_in did not move"
+    both = {k for k, v in fullw2v.SEQ_LAUNCHES.items() if v}
+    assert len(took) == 1 and both == took, fullw2v.SEQ_LAUNCHES
+    assert fullw2v.SEQ_LAUNCHES[next(iter(took))] == 2
+    return next(iter(took))
+
+
+@pytest.mark.parametrize("w_f,N,want", [
+    (3, 5, "wf3_n5_d128"), (2, 3, "wf2_n3_d128"), (2, 5, "wf2_n5_d128"),
+    (5, 5, "wf5_n5_d128"), (4, 7, "runtime")])
+def test_sequential_kernels_on_hazard_batches(dev, w_f, N, want):
+    L = 40
+    lengths = [L, 0, 1, w_f, 2, L - 3, w_f + 2]
+    tokens, negs, lengths = _hazard_batch(40 + w_f, 48, len(lengths), L, N,
+                                          w_f, lengths)
+    assert all(c > 0 for c in _hazards(tokens, negs, lengths, w_f))
+    assert _sequential_all_ways(dev, tokens, negs, lengths, w_f) == want
+    assert fullw2v.seq_instantiation(w_f, N, 128, L) == want
+
+
+def test_sequential_kernels_on_unaligned_tables(dev):
+    tokens, negs, lengths = _hazard_batch(7, 48, 3, 32, 5, 3, [32, 5, 17])
+    assert _sequential_all_ways(dev, tokens, negs, lengths, 3,
+                                unaligned=True) == "runtime"
+
+
+def test_sequential_kernels_at_another_width(dev):
+    tokens, negs, lengths = _hazard_batch(8, 48, 3, 32, 5, 3, [32, 9, 30])
+    assert _sequential_all_ways(dev, tokens, negs, lengths, 3,
+                                d=200) == "runtime"
+
+
+def test_sequential_kernels_with_indices_read_in_place(dev):
+    """L*(N+1) too large to stage two sentences in shared memory."""
+    tokens, negs, lengths = _hazard_batch(9, 96, 2, 1024, 30, 3, [1024, 300])
+    assert fullw2v.seq_instantiation(3, 30, 128, 1024) == "runtime_unstaged"
+    assert _sequential_all_ways(dev, tokens, negs, lengths,
+                                3) == "runtime_unstaged"
+
+
+def test_seq_mirror_matches_the_library(dev):
+    """The plain mirror (seq_smem_bytes, seq_instantiation) against the
+    library's own layout and choice."""
+    from repro_torch.kernels._build import load
+    lib = load().lib
+    w = torch.empty(4 * 256 + 1, device=dev)
+    aligned, shifted = w[:-1].data_ptr(), w[1:].data_ptr()
+    for w_f, N, d, L in ((3, 5, 128, 64), (2, 3, 128, 16), (5, 5, 128, 1000),
+                         (4, 7, 128, 64), (3, 5, 96, 64), (3, 30, 128, 1024),
+                         (3, 5, 128, 6000)):
+        for staged in (True, False):
+            assert lib.fullw2v_seq_smem_bytes(d, w_f, N, L, int(staged)) == \
+                fullw2v.seq_smem_bytes(w_f, N, d, L, staged)["total"]
+        for ptr, ok in ((aligned, True), (shifted, False)):
+            got = lib.fullw2v_seq_variant(ptr, ptr, d, w_f, N, L)
+            assert fullw2v.SEQ_INSTANTIATIONS[got] == \
+                fullw2v.seq_instantiation(w_f, N, d, L, aligned=ok)
 
 
 def test_launch_counts(dev):
