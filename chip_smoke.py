@@ -14,10 +14,11 @@ non-zero):
               some strict tiles) and ``cuda_tiled_fused`` (K4, the same
               batch on the table split at hot=V/4) against their plain
               versions on the card (atol 2e-5, rtol 1e-4, the JAX
-              package's kernel tolerance); K2 == K1, K3(T=1) == K1 and
-              K4 == K3 on concat(hot, got) bit for bit; K1 and K2 once
-              more at a shape outside the compiled list (w_f=4, N=7),
-              which takes the runtime-shaped body.
+              package's kernel tolerance); K2 == K1, K3(T=1) == K1, K3
+              with prefetch == K3 without and K4 == K3 on concat(hot,
+              got) bit for bit; K1 and K2 once more at a shape outside
+              the compiled list (w_f=4, N=7), and K3 at T=6, G=4, both
+              on the runtime-shaped bodies.
 4. trainer  — ``TrainSession`` with ``backend="auto"`` on the card at the
               paper's width (d=128, W=5 so w_f=3, N=5, S=10,000 sentences
               per batch, 65,536-word cluster corpus, 3 batches): T=1 must
@@ -27,14 +28,18 @@ non-zero):
               never, and end with embeddings bit-identical to the
               replicated T=8 run's. Launch counts are zeroed before each
               run and read after it; the T=1 runs must have gone through
-              K1/K2's compiled instantiation for their shape.
+              K1/K2's compiled instantiation for their shape, the T=8 runs
+              through K3/K4's.
 5. timing   — each kernel on the trainer's first batch (the main path's
               shapes; for K4 the sharded run's first batch, with the
               exchange timed apart) against its plain version on the same
               inputs (and K2 == K1 == K3(T=1) bit for bit there), then
               timed (CUDA events) beside its bound and the plain version's
               time, in ms per launch and µs per window; one JSON line
-              lists them.
+              lists them. For K3/K4 also the batch's strict-tile share,
+              its mean unique rows per tile, and the columns the
+              cross-tile prefetch took and rejected (the kernel's device
+              counters, held against the host's count from the plan).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the repository's ``src/`` beside it, the script fails before
@@ -205,6 +210,8 @@ def phase_parity(torch, np, seed):
     k3 = fullw2v.fullw2v_cuda_tiled(*tables(), *idx, lr, w_f, tile, *p8,
                                     gemm_windows=G)
     k3_t1 = fullw2v.fullw2v_cuda_tiled(*tables(), *idx, lr, w_f, 1, *p1)
+    k3_nopf = fullw2v.fullw2v_cuda_tiled(*tables(), *idx, lr, w_f, tile, *p8,
+                                         gemm_windows=G, prefetch=False)
     # K4 on the same batch, the table split at hot = V/4 so that rows come
     # from both sides: ids below hot from hot_*, the rest from got_*
     hot = inp["w_in"].shape[0] // 4
@@ -240,6 +247,10 @@ def phase_parity(torch, np, seed):
         if not same:
             raise AssertionError(f"{name} is not bit-identical to cuda")
         _line("parity", bitwise=f"{name}==cuda")
+    if not (torch.equal(k3[0], k3_nopf[0]) and torch.equal(k3[1], k3_nopf[1])):
+        raise AssertionError("cuda_tiled with prefetch is not bit-identical "
+                             "to cuda_tiled without it")
+    _line("parity", bitwise="cuda_tiled(prefetch)==cuda_tiled(no prefetch)")
     if not (torch.equal(torch.cat([k4[0], k4[2]]), k3[0])
             and torch.equal(torch.cat([k4[1], k4[3]]), k3[1])):
         raise AssertionError("cuda_tiled_fused is not bit-identical to "
@@ -249,6 +260,7 @@ def phase_parity(torch, np, seed):
     if moved < 1e-4:
         raise AssertionError(f"cuda left w_in unchanged (max delta {moved})")
     phase_parity_runtime_shape(torch, np, seed)
+    phase_parity_tiled_runtime_shape(torch, np, seed)
 
     # timings at this shape: the plain versions (host clock, they loop in
     # Python) and the kernels (CUDA events)
@@ -311,6 +323,36 @@ def phase_parity_runtime_shape(torch, np, seed):
           bitwise="cuda_pipelined==cuda")
 
 
+def phase_parity_tiled_runtime_shape(torch, np, seed):
+    """K3 at T=6, G=4 (outside the compiled list: the runtime-shaped body,
+    a whole group and a partial one per tile) on phase 3's batch, built
+    for T=6, against the plain version."""
+    from repro_torch.data.batching import plan_tiles
+    from repro_torch.kernels import fullw2v, ref
+
+    inp = parity_inputs(np, seed, 6)
+    dev = torch.device("cuda")
+    tens = lambda a: torch.from_numpy(a).to(dev)          # noqa: E731
+    tables = lambda: (tens(inp["w_in"].copy()),            # noqa: E731
+                      tens(inp["w_out"].copy()))
+    idx = [tens(inp[k]) for k in ("tokens", "negs", "lengths")]
+    plan = plan_tiles(inp["tokens"], inp["negs"], inp["lengths"], 6)
+    p = [tens(a) for a in (plan.uniq, plan.scatter, plan.ucount, plan.strict)]
+    want = ref.batch_sgns_tiled_ref(*tables(), *idx, inp["lr"], inp["w_f"], 6,
+                                    *p, gemm_windows=4)
+    fullw2v.reset_launch_counts()
+    got = fullw2v.fullw2v_cuda_tiled(*tables(), *idx, inp["lr"], inp["w_f"],
+                                     6, *p, gemm_windows=4)
+    torch.cuda.synchronize()
+    took = {k: v for k, v in fullw2v.TILED_LAUNCHES.items() if v}
+    if took != {"runtime": 1}:
+        raise AssertionError(f"T=6, G=4 took {took}, not the runtime body")
+    err = max(_check_close(torch, f"cuda_tiled (T=6 G=4) {part}", g, w)
+              for part, g, w in zip(("w_in", "w_out"), got, want))
+    _line("parity", kernel="cuda_tiled", shape="T=6 G=4",
+          instantiation="runtime", max_abs_err=f"{err:.3e}")
+
+
 def make_pipeline(args, tile: int, **shard):
     from repro_torch.configs.w2v import W2VConfig
     from repro_torch.data.batching import BatchingPipeline
@@ -347,6 +389,7 @@ def phase_trainer(torch, np, args, tile: int, backend: str, expect: str,
     sess.train(max_batches=args.batches)
     launches = dict(fullw2v.LAUNCHES)
     seq = {k: v for k, v in fullw2v.SEQ_LAUNCHES.items() if v}
+    tiled = {k: v for k, v in fullw2v.TILED_LAUNCHES.items() if v}
     batches = sess.state.batches_seen
     kernel = "cuda_tiled_fused" if sess.placement is not None else expect
     others = {k: v for k, v in launches.items() if k != kernel and v}
@@ -363,6 +406,16 @@ def phase_trainer(torch, np, args, tile: int, backend: str, expect: str,
             raise AssertionError(f"{kernel} took {seq}, not the compiled "
                                  f"{want} {batches} times")
         extra = dict(instantiation=want)
+    else:
+        # the T=8 runs (K3, K4) must take the compiled tiled instantiation
+        want = fullw2v.tiled_instantiation(
+            cfg.fixed_window, cfg.negatives, cfg.dim, cfg.resolved_pad_len,
+            tile, cfg.tile_gemm_windows)
+        if want not in fullw2v.TILED_INSTANTIATIONS[:len(
+                fullw2v.TILED_COMPILED)] or tiled != {want: batches}:
+            raise AssertionError(f"{kernel} took {tiled}, not the compiled "
+                                 f"{want} {batches} times")
+        extra = dict(instantiation=want)
     for name, t in sess.state.params().items():
         if not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{name} has non-finite values")
@@ -376,7 +429,7 @@ def phase_trainer(torch, np, args, tile: int, backend: str, expect: str,
     host = {"host_batching_s_per_step": pipe.stats.seconds / batches,
             "host_wait_s_per_step": sess.fetch_seconds / batches}
     if sess.placement is not None:
-        extra = dict(kernel=kernel, hot=sess.placement.hot,
+        extra.update(kernel=kernel, hot=sess.placement.hot,
                      cold=sess.placement.cold,
                      hot_vocab_frac=cfg.hot_vocab_frac)
     _line("trainer", T=tile, backend=sess.backend, S=cfg.sentences_per_batch,
@@ -406,6 +459,42 @@ def sharded_hot_frac(np, pipe) -> float:
           cold_rows=ex.n_distinct[0], distinct_rows=distinct,
           share=f"{share:.4f}", hot_vocab_frac=frac)
     return frac
+
+
+def tiled_plan_stats(np, uniq, ucount, strict, lengths, tile) -> dict:
+    """The tile plan's traffic facts: the share of the batch's live tiles
+    (inside their sentence) that are strict, their mean unique output rows,
+    and the columns the cross-tile prefetch takes and rejects (host count,
+    the reference's was_prefetched)."""
+    from repro_torch.kernels.fullw2v import prefetch_columns
+
+    nt = strict.shape[1]
+    live = np.arange(nt)[None, :] * tile < lengths[:, None]
+    taken, rejected = prefetch_columns(uniq, ucount, strict, lengths, tile)
+    return dict(live_tiles=int(live.sum()),
+                strict_share=float(strict[live].mean()),
+                mean_unique_rows=float(ucount[live].mean()),
+                host_prefetched=taken, host_rejected=rejected)
+
+
+def device_prefetch_counts(torch, run) -> tuple:
+    """(prefetched, rejected) columns counted by the kernel on the card in
+    one launch, ``run(counters)``."""
+    counters = torch.zeros(2, dtype=torch.int64, device="cuda")
+    run(counters)
+    torch.cuda.synchronize()
+    return tuple(int(c) for c in counters.tolist())
+
+
+def _check_prefetch(name, stats, dev_counts):
+    host = (stats["host_prefetched"], stats["host_rejected"])
+    if dev_counts != host:
+        raise AssertionError(f"{name}: the kernel counted {dev_counts} "
+                             f"prefetched/rejected columns, the plan {host}")
+    _line("main-shape", kernel=name, live_tiles=stats["live_tiles"],
+          strict_tile_share=f"{stats['strict_share']:.4f}",
+          mean_unique_rows_per_tile=f"{stats['mean_unique_rows']:.2f}",
+          prefetched_columns=dev_counts[0], rejected_columns=dev_counts[1])
 
 
 def phase_sharded_shape(torch, np, sess, step_s):
@@ -450,8 +539,15 @@ def phase_sharded_shape(torch, np, sess, step_s):
                            g, w)
               for part, g, w in zip(("hot_in", "hot_out", "got_in",
                                      "got_out"), got, want))
+    stats = tiled_plan_stats(np, ex.plan_uniq, ex.plan_ucount,
+                             ex.plan_strict, ex.lengths, static.tile)
+    _check_prefetch("cuda_tiled_fused", stats, device_prefetch_counts(
+        torch, lambda c: fullw2v.fullw2v_cuda_tiled_fused(
+            *tables(), *args, gemm_windows=static.gemm_windows, counters=c)))
+    fullw2v.reset_launch_counts()
     ms = _time_ms(torch, lambda: fullw2v.fullw2v_cuda_tiled_fused(
         *got, *args, gemm_windows=static.gemm_windows), 2)
+    took = [k for k, v in fullw2v.TILED_LAUNCHES.items() if v]
     if not all(bool(torch.isfinite(t).all()) for t in got):
         raise AssertionError("cuda_tiled_fused: timing runs produced "
                              "non-finite tables")
@@ -476,7 +572,7 @@ def phase_sharded_shape(torch, np, sess, step_s):
                us_per_window=ms * 1e3 / windows,
                S=int(batch.tokens.shape[0]), exchange_ms=exchange_ms,
                hot=pl.hot, R=ex.request_width, cold_rows=ex.n_distinct[0],
-               step_share=share)
+               step_share=share, instantiation=took[0], **stats)
     _line("main-shape", kernel="cuda_tiled_fused", S=out["S"],
           L=int(batch.tokens.shape[1]), hot=pl.hot, R=ex.request_width,
           cold_rows=ex.n_distinct[0], max_abs_err=f"{err:.3e}",
@@ -524,16 +620,17 @@ def phase_main_shape(torch, np, pipe, cfg, names):
     for name in names:
         be = registry.get(name)
         got = tables()
-        fullw2v.reset_launch_counts()
         be.update(*got, step, static)
         torch.cuda.synchronize()
-        took = [k for k, v in fullw2v.SEQ_LAUNCHES.items() if v]
         results[name] = (got[0].clone(), got[1].clone())
         err = max(_check_close(torch, f"{name} w_in (main shape)", got[0],
                                want[0]),
                   _check_close(torch, f"{name} w_out (main shape)", got[1],
                                want[1]))
+        fullw2v.reset_launch_counts()
         ms = _time_ms(torch, lambda: be.update(*got, step, static), 2)
+        took = [k for k, v in {**fullw2v.SEQ_LAUNCHES,
+                               **fullw2v.TILED_LAUNCHES}.items() if v]
         windows = int(batch.lengths.sum())
         out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
                          bound_ms=b_ms, bound_by=b_by, windows=windows,
@@ -553,6 +650,17 @@ def phase_main_shape(torch, np, pipe, cfg, names):
         if not bool(torch.isfinite(got[0]).all()):
             raise AssertionError(f"{name}: timing runs produced non-finite "
                                  f"tables")
+        if batch.plan is not None:
+            p = batch.plan
+            stats = tiled_plan_stats(np, p.uniq, p.ucount, p.strict,
+                                     batch.lengths, p.tile)
+            _check_prefetch(name, stats, device_prefetch_counts(
+                torch, lambda c: fullw2v.fullw2v_cuda_tiled(
+                    *tables(), step.tokens, step.negs, step.lengths,
+                    step.lr, static.w_f, static.tile, step.plan_uniq,
+                    step.plan_scatter, step.plan_ucount, step.plan_strict,
+                    gemm_windows=static.gemm_windows, counters=c)))
+            out[name].update(stats)
     if "cuda" in results and "cuda_pipelined" in results:
         plan = plan_tiles(batch.tokens, batch.negs, batch.lengths, 1)
         p1 = [torch.from_numpy(a).cuda() for a in (
@@ -624,12 +732,12 @@ def main(argv=None) -> int:
         _line("trainer", note="ordered step over 60 s", S_halved_to=args.S)
         sess1, n_pipe, s_pipe, inst_pipe, h_pipe = phase_trainer(
             torch, np, args, 1, "auto", "cuda_pipelined")
-    sess8, n_tiled, s_tiled, _, h_tiled = phase_trainer(
+    sess8, n_tiled, s_tiled, inst_tiled, h_tiled = phase_trainer(
         torch, np, args, 8, "auto", "cuda_tiled")
     _, n_seq, s_seq, inst_seq, h_seq = phase_trainer(torch, np, args, 1,
                                                      "cuda", "cuda")
     frac = sharded_hot_frac(np, sess8.pipeline)
-    sess_vs, n_fused, s_fused, _, h_fused = phase_trainer(
+    sess_vs, n_fused, s_fused, inst_fused, h_fused = phase_trainer(
         torch, np, args, 8, "auto", "cuda_tiled", vocab_shard=True,
         hot_vocab_frac=frac)
     if not np.array_equal(sess_vs.embeddings(), sess8.embeddings()):
@@ -653,9 +761,10 @@ def main(argv=None) -> int:
                                                      s_fused)
     files = {"cuda": "src/repro_torch/kernels/csrc/seq.cuh",
              "cuda_pipelined": "src/repro_torch/kernels/csrc/seq.cuh",
-             "cuda_tiled": "src/repro_torch/kernels/csrc/fullw2v.cu",
-             "cuda_tiled_fused": "src/repro_torch/kernels/csrc/fullw2v.cu"}
-    trained_with = {"cuda": inst_seq, "cuda_pipelined": inst_pipe}
+             "cuda_tiled": "src/repro_torch/kernels/csrc/tiled.cuh",
+             "cuda_tiled_fused": "src/repro_torch/kernels/csrc/tiled.cuh"}
+    trained_with = {"cuda": inst_seq, "cuda_pipelined": inst_pipe,
+                    "cuda_tiled": inst_tiled, "cuda_tiled_fused": inst_fused}
     sources = {"cuda": ("_kernel", "src/repro/kernels/fullw2v.py:284"),
                "cuda_pipelined": ("_kernel_pipelined",
                                   "src/repro/kernels/fullw2v.py:376"),
@@ -693,6 +802,10 @@ def main(argv=None) -> int:
         if name == "cuda_tiled_fused":
             row.update({k: timing[name][k] for k in (
                 "exchange_ms", "hot", "R", "cold_rows", "step_share")})
+        if name in ("cuda_tiled", "cuda_tiled_fused"):
+            row.update({k: timing[name][k] for k in (
+                "live_tiles", "strict_share", "mean_unique_rows",
+                "host_prefetched", "host_rejected")})
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,7 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fullw2v.cu",)
-HEADERS = ("seq.cuh", "window.cuh")
+HEADERS = ("seq.cuh", "tiled.cuh", "window.cuh")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -70,12 +70,16 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fullw2v_seq_smem_bytes.argtypes = [i, i, i, i, i]
     lib.fullw2v_seq_smem_bytes.restype = ctypes.c_longlong
     lib.fullw2v_tiled_launch.argtypes = [p, p, p, p, p, p, p, p, p, f,
-                                         i, i, i, i, i, i, i, p]
+                                         i, i, i, i, i, i, i, i, p, p]
     lib.fullw2v_tiled_launch.restype = i
     lib.fullw2v_tiled_fused_launch.argtypes = [p, p, p, p, i, p, p, p, p, p,
                                                p, p, f, i, i, i, i, i, i, i,
-                                               p]
+                                               i, p, p]
     lib.fullw2v_tiled_fused_launch.restype = i
+    lib.fullw2v_tiled_choice.argtypes = [p, p, p, p, i, i, i, i, i, i, i]
+    lib.fullw2v_tiled_choice.restype = i
+    lib.fullw2v_tiled_smem_bytes.argtypes = [i, i, i, i, i, i, i, i]
+    lib.fullw2v_tiled_smem_bytes.restype = ctypes.c_longlong
     lib.fullw2v_error_string.argtypes = [i]
     lib.fullw2v_error_string.restype = ctypes.c_char_p
 

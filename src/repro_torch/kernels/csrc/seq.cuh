@@ -62,10 +62,11 @@
 //   accumulates them together and folds them with one transposed xor
 //   reduction (NV partials, NV-1 + 5 - log2(NV) shuffles instead of 5 per
 //   pair), which leaves each lane one pair's sum; the lanes then run their
-//   sigmoids side by side, without stable_sigmoid's branch (same bits).
+//   sigmoids side by side, without the branch of core/sgns.py's
+//   stable_sigmoid (same bits).
 //
-// The bits do not move: every sum keeps the order of window.cuh's
-// window_group_update, which K3/K4 still run, so K2 == K1 == K3(T=1):
+// The bits do not move: every sum keeps one order, the one the tiled
+// kernels K3/K4 (tiled.cuh) also keep, so K2 == K1 == K3(T=1):
 // - a pair's dot product: lane l adds fmaf over columns l, l+32, ... from
 //   0.0f in increasing order, then the lanes fold in the xor order 16, 8, 4,
 //   2, 1 (the transposed reduction adds the same two partials at every node
@@ -269,7 +270,8 @@ __device__ __forceinline__ void warp_partials(
   pair_partials<WF, NNEG, W>(v, ring, head, ob, amin, amax, lane);
 }
 
-// stable_sigmoid's value, bit for bit, without its branch: both branches
+// core/sgns.py's stable_sigmoid, bit for bit, without its branch (1/(1+e^-x)
+// for x >= 0, e^x/(1+e^x) else): both branches
 // take expf of -|x|, and 1/(1+e) is the correctly rounded quotient either
 // way.
 __device__ __forceinline__ float sigmoid_nb(float x) {

@@ -18,6 +18,13 @@ The port's counterpart of ``repro.kernels.fullw2v``'s host entry points:
   ``fullw2v_pallas_tiled_fused`` enters it); bit-identical to
   :func:`fullw2v_cuda_tiled` on ``concat(hot, got)``.
 
+K3 and K4 are one body (``csrc/tiled.cuh``), compiled for the shapes in
+:data:`TILED_COMPILED` and once with runtime shapes for any other;
+:func:`tiled_instantiation` says which a launch takes and
+:data:`TILED_LAUNCHES` counts them. Both prefetch the next tile's unique
+rows as the reference's K4 does (:func:`prefetch_columns` counts the
+columns on the host).
+
 All update their tables **in place** (the reference donates its tables to
 the same effect) and return them. They take tensors on one CUDA device,
 launch the kernel on the current stream, and raise for anything else:
@@ -35,8 +42,9 @@ wrapper checks its working-table ids on the host.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.w2v import resolve_gemm_windows
@@ -61,10 +69,23 @@ SMEM_LIMIT = 232_448
 # K1/K2 launches per instantiation (which body a run went through)
 SEQ_LAUNCHES: Dict[str, int] = {name: 0 for name in SEQ_INSTANTIATIONS}
 
+# K3/K4's instantiations, in the order of csrc/fullw2v.cu's tiled_kernel_of:
+# the compiled (w_f, N, T, G) shapes at d = SEQ_ROW_WIDTH (the trainer's
+# T=8 step, then T=1 at each K1/K2 shape), then the runtime-shaped body with
+# the indices and tile plan staged in shared memory and read in place
+TILED_COMPILED: Tuple[Tuple[int, int, int, int], ...] = (
+    (3, 5, 8, 4), (2, 3, 1, 1), (2, 5, 1, 1), (3, 5, 1, 1), (5, 5, 1, 1))
+TILED_INSTANTIATIONS: Tuple[str, ...] = tuple(
+    f"wf{w_f}_n{n}_t{t}_g{g}_d{SEQ_ROW_WIDTH}"
+    for w_f, n, t, g in TILED_COMPILED) + ("runtime", "runtime_unstaged")
+
+# K3 and K4 launches per instantiation
+TILED_LAUNCHES: Dict[str, int] = {name: 0 for name in TILED_INSTANTIATIONS}
+
 
 def reset_launch_counts() -> None:
     """Zero every kernel's launch count and the per-instantiation counts."""
-    for counts in (LAUNCHES, SEQ_LAUNCHES):
+    for counts in (LAUNCHES, SEQ_LAUNCHES, TILED_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -104,21 +125,97 @@ def seq_instantiation(w_f: int, n_neg: int, d: int, L: int,
     return "runtime" if fits else "runtime_unstaged"
 
 
-def tiled_scratch_rows(tile: int, w_f: int, n_neg: int,
-                       gemm_windows: int = 0) -> dict:
-    """Shared-memory rows of the tiled kernel's buffers (each row is d
-    floats; ``g`` counts floats): the counterpart of the reference's
-    ``tiled_scratch_rows`` without the TPU's sublane padding. The strict
-    path reuses ``ctx_tile``/``out_exp`` for its single window."""
-    g = resolve_gemm_windows(tile, gemm_windows)
-    m = n_neg + 1
-    return {
-        "ring": tile + 2 * w_f,
-        "ctx_tile": g * 2 * w_f,
-        "out_uniq": tile * m,
-        "out_exp": g * m,
-        "g": g * 2 * w_f * m,
-    }
+def tiled_smem_bytes(w_f: int, n_neg: int, d: int, L: int, tile: int,
+                     gemm_windows: int, staged: bool = True,
+                     prefetch: bool = True) -> dict:
+    """K3/K4's dynamic shared memory in bytes, buffer by buffer (the mirror
+    of ``tiled_layout`` in ``csrc/tiled.cuh``): the context ring of
+    ``2G + 2w_f`` rows, ``out_uniq`` of ``T(N+1)`` rows (two halves when
+    ``prefetch``: tile i+1's rows stream into one while tile i uses the
+    other), two buffers of a strict window's ``N+1`` rows, the runtime
+    body's copy of a step's ``G + 2w_f`` context columns, ``g`` padded to 4
+    floats, 8 flag words, one prefetch flag per tile column, the list of
+    rows issued ahead (two ints a row, up to ``T(N+1) + G + N+1`` rows) and,
+    when ``staged``, two buffers of one sentence's tokens, negatives,
+    length and tile plan (``uniq``, ``scatter``, ``ucount``, ``strict``)."""
+    G = resolve_gemm_windows(tile, gemm_windows)
+    K, m = 2 * w_f, n_neg + 1
+    MT, nt = tile * m, -(-L // tile)
+    stage = _pad4(_pad4(L + L * n_neg + 1) + 2 * nt * MT + 2 * nt)
+    out = {"ring": 4 * (2 * G + K) * d,
+           "out_uniq": 4 * (2 if prefetch else 1) * MT * d,
+           "out_rows": 4 * 2 * m * d, "columns": 4 * (G + K) * d,
+           "g": 4 * _pad4(G * K * m), "flags": 4 * 8,
+           "prefetch_flags": 4 * _pad4(MT),
+           "copy_list": 4 * _pad4(2 * (MT + G + m)),
+           "indices": 4 * 2 * stage if staged else 0}
+    out["total"] = sum(out.values())
+    return out
+
+
+def tiled_choice(w_f: int, n_neg: int, d: int, L: int, tile: int,
+                 gemm_windows: int = 0, aligned: bool = True,
+                 prefetch: bool = True,
+                 limit: int = SMEM_LIMIT) -> Tuple[str, bool]:
+    """The K3/K4 instantiation a launch takes and whether it prefetches (the
+    mirror of ``tiled_choice`` in ``csrc/fullw2v.cu``): the compiled shape
+    when ``(w_f, n_neg, tile, G)`` is in :data:`TILED_COMPILED`, ``d`` is
+    :data:`SEQ_ROW_WIDTH`, every table is 16-byte aligned and the staged
+    layout fits in ``limit`` bytes; else the runtime-shaped body, staged
+    when that fits and prefetching when the double-buffered ``out_uniq``
+    fits too. ``prefetch=False`` turns the prefetch off."""
+    G = resolve_gemm_windows(tile, gemm_windows)
+
+    def fits(pf, staged):
+        return tiled_smem_bytes(w_f, n_neg, d, L, tile, G, staged,
+                                pf)["total"] <= limit
+
+    if d == SEQ_ROW_WIDTH and aligned and fits(prefetch, True) and \
+            (w_f, n_neg, tile, G) in TILED_COMPILED:
+        return TILED_INSTANTIATIONS[TILED_COMPILED.index(
+            (w_f, n_neg, tile, G))], prefetch
+    for name, staged in (("runtime", True), ("runtime_unstaged", False)):
+        for pf in (prefetch, False):
+            if fits(pf, staged):
+                return name, pf
+    return "runtime_unstaged", False
+
+
+def tiled_instantiation(w_f: int, n_neg: int, d: int, L: int, tile: int,
+                        gemm_windows: int = 0, aligned: bool = True,
+                        limit: int = SMEM_LIMIT) -> str:
+    """The K3/K4 instantiation a launch takes (see :func:`tiled_choice`)."""
+    return tiled_choice(w_f, n_neg, d, L, tile, gemm_windows, aligned,
+                        limit=limit)[0]
+
+
+def prefetch_columns(uniq: np.ndarray, ucount: np.ndarray,
+                     strict: np.ndarray, lengths: np.ndarray,
+                     tile: int) -> Tuple[int, int]:
+    """(prefetched, rejected) columns of a batch's tile plan under the
+    reference's ``was_prefetched`` (``fullw2v.py:617-636``): a column
+    ``c < ucount`` of tile ``i >= 1`` inside the sentence, with tiles ``i``
+    and ``i-1`` both fused, is prefetched during tile ``i-1`` unless its row
+    is in tile ``i-1``'s write-back set (then it is rejected and loaded
+    after that write-back). What the kernels count on the card."""
+    S, nt, M = uniq.shape
+    if nt < 2:
+        return 0, 0
+    cols = np.arange(M)
+    taken = rejected = 0
+    for s0 in range(0, S, 512):            # bounded memory at large S
+        uq, uc = uniq[s0:s0 + 512], ucount[s0:s0 + 512]
+        st, ln = strict[s0:s0 + 512], lengths[s0:s0 + 512]
+        live = ((np.arange(1, nt)[None, :] * tile < ln[:, None])
+                & (st[:, 1:] == 0) & (st[:, :-1] == 0))       # (S, nt-1)
+        cur = cols[None, None, :] < uc[:, 1:, None]          # (S, nt-1, M)
+        prev = cols[None, None, :] < uc[:, :-1, None]
+        hit = ((uq[:, 1:, :, None] == uq[:, :-1, None, :])
+               & prev[:, :, None, :]).any(-1)
+        real = cur & live[:, :, None]
+        rejected += int((real & hit).sum())
+        taken += int((real & ~hit).sum())
+    return taken, rejected
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -246,28 +343,62 @@ def fullw2v_cuda_tiled(
     ucount: torch.Tensor,    # (S, nt) int32
     strict: torch.Tensor,    # (S, nt) int32
     gemm_windows: int = 0,   # windows per GEMM group; 0 -> min(tile, 4)
+    prefetch: bool = True,   # False: no cross-tile prefetch (same results)
+    counters: Optional[torch.Tensor] = None,  # (2,) int64, += prefetched,
+                                              # rejected columns
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Window-tiled FULL-W2V pass (T windows per step, deltas applied in
     groups of G windows), updating ``w_in``/``w_out`` in place. The plan
     must come from ``repro_torch.data.batching.plan_tiles`` for the same
-    batch."""
+    batch. The launch counts in :data:`LAUNCHES` and, under the
+    instantiation it took, in :data:`TILED_LAUNCHES`."""
     S, L, N, d = _check_batch(w_in, w_out, tokens, negs, lengths)
     _check_plan(S, L, N, tile, uniq, scatter, ucount, strict)
     G = resolve_gemm_windows(tile, gemm_windows)
     _require_cuda(w_in, w_out, tokens, negs, lengths, uniq, scatter, ucount,
-                  strict)
+                  strict, *_counter_list(counters))
     from repro_torch.kernels._build import load
     lib = load().lib
     with torch.cuda.device(w_in.device):
+        name = _tiled_choice(lib, (w_in, w_out), d, w_f, N, L, tile, G,
+                             prefetch, "cuda_tiled")
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fullw2v_tiled_launch(
             w_in.data_ptr(), w_out.data_ptr(), tokens.data_ptr(),
             negs.data_ptr(), lengths.data_ptr(), uniq.data_ptr(),
             scatter.data_ptr(), ucount.data_ptr(), strict.data_ptr(),
-            _ref.lr32(lr), S, L, N, d, w_f, tile, G, stream)
+            _ref.lr32(lr), S, L, N, d, w_f, tile, G, int(prefetch),
+            _counter_ptr(counters), stream)
     _raise_on_error(lib, err, "cuda_tiled")
     LAUNCHES["cuda_tiled"] += 1
+    TILED_LAUNCHES[name] += 1
     return w_in, w_out
+
+
+def _counter_list(counters):
+    if counters is None:
+        return []
+    _require(counters.dtype == torch.int64 and tuple(counters.shape) == (2,)
+             and counters.is_contiguous(),
+             f"counters must be a contiguous (2,) int64 tensor, got "
+             f"{counters.dtype} {tuple(counters.shape)}")
+    return [counters]
+
+
+def _counter_ptr(counters):
+    return None if counters is None else counters.data_ptr()
+
+
+def _tiled_choice(lib, tables, d, w_f, N, L, tile, G, prefetch,
+                  name) -> str:
+    """The K3/K4 instantiation the library takes for these tables."""
+    ptrs = [t.data_ptr() for t in tables] + [None] * (4 - len(tables))
+    got = lib.fullw2v_tiled_choice(*ptrs, d, w_f, N, L, tile, G,
+                                   int(prefetch))
+    if got < 0:
+        raise RuntimeError(f"{name}: cannot query the device's shared "
+                           f"memory limit")
+    return TILED_INSTANTIATIONS[got >> 1]
 
 
 def fullw2v_cuda_tiled_fused(
@@ -286,6 +417,8 @@ def fullw2v_cuda_tiled_fused(
     ucount: torch.Tensor,    # (S, nt) int32
     strict: torch.Tensor,    # (S, nt) int32
     gemm_windows: int = 0,   # windows per GEMM group; 0 -> min(tile, 4)
+    prefetch: bool = True,   # as in fullw2v_cuda_tiled
+    counters: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The window-tiled pass on the split working table of a vocab-sharded
     step (K4): ids below ``hot`` address ``hot_*``, the rest ``got_*`` at
@@ -309,7 +442,7 @@ def fullw2v_cuda_tiled_fused(
     _check_plan(S, L, N, tile, uniq, scatter, ucount, strict)
     G = resolve_gemm_windows(tile, gemm_windows)
     _require_cuda(hot_in, hot_out, got_in, got_out, tokens, negs, lengths,
-                  uniq, scatter, ucount, strict)
+                  uniq, scatter, ucount, strict, *_counter_list(counters))
     rows = hot + got_in.shape[0]
     # one host read for all three arrays (plan columns past ucount hold 0,
     # a hot row, so every entry can be checked)
@@ -322,13 +455,16 @@ def fullw2v_cuda_tiled_fused(
     from repro_torch.kernels._build import load
     lib = load().lib
     with torch.cuda.device(hot_in.device):
+        name = _tiled_choice(lib, (hot_in, hot_out, got_in, got_out), d, w_f,
+                             N, L, tile, G, prefetch, "cuda_tiled_fused")
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fullw2v_tiled_fused_launch(
             hot_in.data_ptr(), hot_out.data_ptr(), got_in.data_ptr(),
             got_out.data_ptr(), hot, tokens.data_ptr(), negs.data_ptr(),
             lengths.data_ptr(), uniq.data_ptr(), scatter.data_ptr(),
             ucount.data_ptr(), strict.data_ptr(), _ref.lr32(lr), S, L, N, d,
-            w_f, tile, G, stream)
+            w_f, tile, G, int(prefetch), _counter_ptr(counters), stream)
     _raise_on_error(lib, err, "cuda_tiled_fused")
     LAUNCHES["cuda_tiled_fused"] += 1
+    TILED_LAUNCHES[name] += 1
     return hot_in, hot_out, got_in, got_out

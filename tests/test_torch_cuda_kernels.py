@@ -9,7 +9,9 @@ kernel bit for bit, and the split-table kernel (K4) the tiled kernel on
 ``concat(hot, got)``. The sequential kernels are also run on batches built
 to hit every hazard of K2's prefetch, at each compiled shape, at a shape
 outside the list, on unaligned tables and with indices too large to
-stage."""
+stage; the tiled ones at every group size, with the cross-tile prefetch
+on and off (bit for bit), on strict tiles and hazard rows, on unaligned
+tables and at another width."""
 import numpy as np
 import pytest
 import torch
@@ -314,3 +316,169 @@ def test_bad_inputs_raise_on_the_card(dev):
                  (w_in, w_out, tokens.cpu(), negs, lengths)):
         with pytest.raises(ValueError):
             fullw2v.fullw2v_cuda(*args, 0.05, 3)
+
+
+# ---------------------------------------------------------------------------
+# the tiled body (csrc/tiled.cuh): every group size, the cross-tile
+# prefetch, the runtime-shaped instantiation and the host mirror
+# ---------------------------------------------------------------------------
+
+def _tiled_all_ways(dev, tokens, negs, lengths, tile, G, w_f=3, d=128,
+                    unaligned=False, seed=0):
+    """K3 with and without the prefetch and K4 split at V//3 on one batch;
+    returns (K3, the plain version, the instantiation taken, the device
+    counters, the plan). K3 with prefetch must equal K3 without it bit for
+    bit, K4 K3 on the concatenation bit for bit."""
+    V = int(max(tokens.max(), negs.max())) + 1
+    rng = np.random.default_rng(seed)
+    w_in = (rng.normal(size=(V, d)) * 0.1).astype(np.float32)
+    w_out = (rng.normal(size=(V, d)) * 0.1).astype(np.float32)
+    put = lambda a: torch.from_numpy(a).to(dev)          # noqa: E731
+
+    def tables():
+        if not unaligned:
+            return put(w_in.copy()), put(w_out.copy())
+        out = []
+        for a in (w_in, w_out):   # a view one float into its storage
+            buf = torch.empty(a.size + 1, device=dev)
+            buf[1:] = put(a.ravel())
+            out.append(buf[1:].view(V, d))
+        return tuple(out)
+
+    idx = [put(tokens), put(negs), put(lengths)]
+    plan = plan_tiles(tokens, negs, lengths, tile)
+    p = [put(a) for a in (plan.uniq, plan.scatter, plan.ucount, plan.strict)]
+    want = ref.batch_sgns_tiled_ref(*tables(), *idx, 0.05, w_f, tile, *p,
+                                    gemm_windows=G)
+    counters = torch.zeros(2, dtype=torch.int64, device=dev)
+    fullw2v.reset_launch_counts()
+    k3 = fullw2v.fullw2v_cuda_tiled(*tables(), *idx, 0.05, w_f, tile, *p,
+                                    gemm_windows=G, counters=counters)
+    took = [k for k, v in fullw2v.TILED_LAUNCHES.items() if v]
+    off = fullw2v.fullw2v_cuda_tiled(*tables(), *idx, 0.05, w_f, tile, *p,
+                                     gemm_windows=G, prefetch=False)
+    assert all(torch.equal(a, b) for a, b in zip(k3, off)), \
+        "the prefetch changed a value"
+    if not unaligned:
+        hot = V // 3
+        w_i, w_o = tables()
+        split = (w_i[:hot].clone(), w_o[:hot].clone(), w_i[hot:].clone(),
+                 w_o[hot:].clone())
+        k4 = fullw2v.fullw2v_cuda_tiled_fused(*split, *idx, 0.05, w_f, tile,
+                                              *p, gemm_windows=G)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat([k4[0], k4[2]]), k3[0])
+        assert torch.equal(torch.cat([k4[1], k4[3]]), k3[1])
+    torch.cuda.synchronize()
+    assert len(took) == 1, fullw2v.TILED_LAUNCHES
+    return k3, want, took[0], tuple(counters.tolist()), plan
+
+
+def _shared_neg_batch(seed, S=8, L=48, N=5, tile=8, V=400):
+    """The trainer's traffic: negatives shared per tile, and in every other
+    sentence the same negatives in consecutive tiles (their rows are in the
+    previous tile's write-back set, so the prefetch rejects them); short,
+    empty and one-window sentences."""
+    rng = np.random.default_rng(seed)
+    tokens = np.stack([rng.choice(V // 2, size=L, replace=False)
+                       for _ in range(S)]).astype(np.int32)
+    negs = np.zeros((S, L, N), np.int32)
+    for s in range(S):
+        keep = rng.choice(np.arange(V // 2, V), size=N, replace=False)
+        for t0 in range(0, L, tile):
+            pool = keep if s % 2 == 0 else rng.choice(
+                np.arange(V // 2, V), size=N, replace=False)
+            negs[s, t0:t0 + tile] = pool
+    lengths = rng.integers(0, L + 1, size=S).astype(np.int32)
+    lengths[:4] = [L, 0, 1, 3]
+    return tokens, negs, lengths
+
+
+@pytest.mark.parametrize("tile,G", [(1, 1), (4, 1), (4, 2), (4, 4), (8, 1),
+                                    (8, 2), (8, 4), (16, 1), (16, 2),
+                                    (16, 4)])
+def test_tiled_kernel_at_every_group(dev, tile, G):
+    """K3 against the plain version at T in {1, 4, 8, 16} and G in {1, 2,
+    4}; T=8, G=4 (the trainer's) and T=1 take compiled bodies, the rest the
+    runtime-shaped one."""
+    tokens, negs, lengths = _shared_neg_batch(50 + tile + G, tile=tile)
+    k3, want, took, counters, plan = _tiled_all_ways(dev, tokens, negs,
+                                                     lengths, tile, G)
+    _assert_close(k3, want)
+    assert took == fullw2v.tiled_instantiation(3, 5, 128, 48, tile, G)
+    assert (took != "runtime") == ((3, 5, tile, G) in fullw2v.TILED_COMPILED)
+    assert counters == fullw2v.prefetch_columns(
+        plan.uniq, plan.ucount, plan.strict, lengths, tile)
+
+
+def test_tiled_prefetch_rejects_the_write_back_set(dev):
+    """Consecutive fused tiles that share their negatives: the prefetch
+    takes some columns and rejects others, and the result is the plain
+    version's and, bit for bit, the result without prefetch."""
+    tokens, negs, lengths = _shared_neg_batch(7)
+    k3, want, took, (taken, rejected), plan = _tiled_all_ways(
+        dev, tokens, negs, lengths, 8, 4)
+    assert took == "wf3_n5_t8_g4_d128"
+    assert taken > 0 and rejected > 0
+    _assert_close(k3, want)
+
+
+def test_tiled_strict_and_hazard_rows(dev):
+    """Small vocabulary: repeated targets make strict tiles, tokens repeat
+    at the ring's store distances, a strict window's rows equal rows the
+    step before it writes. K3 == plain, the prefetch changes nothing and
+    K4 == K3 on the concatenation."""
+    w_f, N = 3, 5
+    L = 40
+    lengths = [L, 0, 1, w_f, 2, L - 3, w_f + 2]
+    tokens, negs, lengths = _hazard_batch(41, 48, len(lengths), L, N, w_f,
+                                          lengths)
+    plan = plan_tiles(tokens, negs, lengths, 8)
+    assert plan.strict.any() and not plan.strict.all()
+    k3, want, took, _, _ = _tiled_all_ways(dev, tokens, negs, lengths, 8, 4)
+    assert took == "wf3_n5_t8_g4_d128"
+    _assert_close(k3, want)
+
+
+def test_tiled_runtime_body_unaligned_and_another_width(dev):
+    """Unaligned tables take the runtime body at the main shape and give
+    the compiled body's bits; d=96 takes it too and matches the plain
+    version."""
+    tokens, negs, lengths = _shared_neg_batch(9)
+    k3, _, took, _, _ = _tiled_all_ways(dev, tokens, negs, lengths, 8, 4)
+    k3u, want, tooku, _, _ = _tiled_all_ways(dev, tokens, negs, lengths, 8,
+                                             4, unaligned=True)
+    assert (took, tooku) == ("wf3_n5_t8_g4_d128", "runtime")
+    assert all(torch.equal(a, b) for a, b in zip(k3u, k3))
+    k96, want96, took96, _, _ = _tiled_all_ways(dev, tokens, negs, lengths,
+                                                8, 4, d=96)
+    assert took96 == "runtime"
+    _assert_close(k96, want96)
+
+
+def test_tiled_mirror_matches_the_library(dev):
+    """The plain mirror (tiled_smem_bytes, tiled_choice) against the
+    library's own layout and choice."""
+    from repro_torch.kernels._build import load
+    lib = load().lib
+    w = torch.empty(4 * 256 + 1, device=dev)
+    aligned, shifted = w[:-1].data_ptr(), w[1:].data_ptr()
+    for w_f, N, d, L, tile, G in ((3, 5, 128, 64, 8, 4),
+                                  (3, 5, 128, 1000, 8, 4),
+                                  (2, 3, 128, 16, 1, 1), (3, 5, 96, 64, 8, 4),
+                                  (3, 5, 128, 6000, 8, 4),
+                                  (3, 30, 300, 64, 16, 4),
+                                  (4, 7, 128, 40, 3, 3)):
+        for staged in (True, False):
+            for pf in (True, False):
+                assert lib.fullw2v_tiled_smem_bytes(
+                    d, w_f, N, L, tile, G, int(pf), int(staged)) == \
+                    fullw2v.tiled_smem_bytes(w_f, N, d, L, tile, G, staged,
+                                             pf)["total"]
+        for ptr, ok in ((aligned, True), (shifted, False)):
+            for pf in (True, False):
+                got = lib.fullw2v_tiled_choice(ptr, ptr, None, None, d, w_f,
+                                               N, L, tile, G, int(pf))
+                assert (fullw2v.TILED_INSTANTIATIONS[got >> 1],
+                        bool(got & 1)) == fullw2v.tiled_choice(
+                    w_f, N, d, L, tile, G, aligned=ok, prefetch=pf)

@@ -197,9 +197,16 @@ def test_wrappers_reject_bad_inputs():
 
 
 def test_tiled_scratch_rows():
-    rows = fullw2v.tiled_scratch_rows(8, 3, 5, 4)
-    assert rows == {"ring": 14, "ctx_tile": 24, "out_uniq": 48,
-                    "out_exp": 24, "g": 144}
+    """The tiled kernel's shared-memory rows at T=8, w_f=3, N=5, G=4 (each
+    row d floats; g counts floats): a ring of 2G + 2w_f rows, out_uniq in
+    two halves of T(N+1) rows, a strict window's rows twice, the runtime
+    body's G + 2w_f context columns."""
+    b = fullw2v.tiled_smem_bytes(3, 5, 128, 64, 8, 4)
+    rows = {k: b[k] // (4 * 128) for k in ("ring", "out_uniq", "out_rows",
+                                           "columns")}
+    assert rows == {"ring": 14, "out_uniq": 96, "out_rows": 12,
+                    "columns": 10}
+    assert b["g"] // 4 == 144
 
 
 @pytest.mark.parametrize("kw", [dict(static_ids=torch.zeros(2)),

@@ -11,13 +11,15 @@ Each turn is a fresh process that imports ``repro_torch`` from
 the paper's width (d=128, W=5 so w_f=3, N=5, the 65,536-word cluster
 corpus of ``chip_smoke.py``):
 
-* the T=1 ``auto`` trainer (``TrainSession``, K2): seconds per step and
-  words per second over ``--batches`` batches;
+* the T=1 and the T=8 ``auto`` trainers (``TrainSession``: K2, then K3):
+  seconds per step and words per second over ``--batches`` batches;
 * K1 (``cuda``) and K2 (``cuda_pipelined``) on the trainer's first batch,
   K3 (``cuda_tiled``, T=8, G=4) on the T=8 pipeline's first batch and K4
   (the split-table ``update_fused``) on the one-shard vocab-sharded
   pipeline's first batch: ms per launch (CUDA events, mean of ``--reps``
-  launches after one warm-up) and µs per window.
+  launches after one warm-up), µs per window, and the sha256 of the
+  tables after one launch from tables drawn from a generator seeded with
+  0 (the same in every tree, so equal digests mean the same bits).
 
 Each turn prints one JSON line; the parent prints them and, last, one JSON
 object with every turn and the card's name and power limit (nvidia-smi).
@@ -26,6 +28,7 @@ Needs a CUDA device; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -76,22 +79,29 @@ def measure(tree: str, S: int, batches: int, seed: int, reps: int) -> dict:
         return start.elapsed_time(end) / reps
 
     out = {"tree": tree, "build_s": build_s, "built": lib.built}
-    # the T=1 auto trainer
-    cfg1 = config(1)
-    sess = TrainSession(BatchingPipeline(corpus, cfg1), cfg1, device="cuda")
-    sess.train(max_batches=batches)
-    torch.cuda.synchronize()
-    out["trainer"] = {"backend": sess.backend,
-                      "batches": sess.state.batches_seen,
-                      "s_per_step": sess.wall_seconds
-                      / sess.state.batches_seen,
-                      "words_per_s": sess.words_per_sec}
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    # the T=1 and T=8 auto trainers
+    for key, tile in (("trainer", 1), ("trainer_t8", 8)):
+        cfg = config(tile)
+        sess = TrainSession(BatchingPipeline(corpus, cfg), cfg,
+                            device="cuda")
+        sess.train(max_batches=batches)
+        torch.cuda.synchronize()
+        out[key] = {"backend": sess.backend,
+                    "batches": sess.state.batches_seen,
+                    "s_per_step": sess.wall_seconds
+                    / sess.state.batches_seen,
+                    "words_per_s": sess.words_per_sec}
 
     def tables(rows, d):
+        gen = torch.Generator(device="cuda").manual_seed(0)
         return [(torch.rand((rows, d), generator=gen, device="cuda") - 0.5)
                 / d for _ in range(2)]
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()
 
     kernels = {}
     for tile, names in ((1, ("cuda", "cuda_pipelined")), (8, ("cuda_tiled",))):
@@ -100,17 +110,20 @@ def measure(tree: str, S: int, batches: int, seed: int, reps: int) -> dict:
         batch = next(pipe.batches(pad_len=cfg.resolved_pad_len, epoch=0))
         step = batch.step_inputs(cfg.lr, torch.device("cuda"))
         static = ops.static_for(cfg, step.tile)
-        w_in, w_out = tables(pipe.table_rows, cfg.dim)
         windows = int(batch.lengths.sum())
         for name in names:
             be = registry.get(name)
+            w_in, w_out = tables(pipe.table_rows, cfg.dim)
+            be.update(w_in, w_out, step, static)
+            sha = digest(w_in, w_out)
             if hasattr(fullw2v, "SEQ_LAUNCHES"):
                 fullw2v.reset_launch_counts()
             ms = time_ms(lambda: be.update(w_in, w_out, step, static))
             kernels[name] = {"ms": ms, "us_per_window": ms * 1e3 / windows,
-                             "windows": windows}
-            if hasattr(fullw2v, "SEQ_LAUNCHES"):
-                took = [k for k, v in fullw2v.SEQ_LAUNCHES.items() if v]
+                             "windows": windows, "sha256": sha}
+            for counts in ("SEQ_LAUNCHES", "TILED_LAUNCHES"):
+                took = [k for k, v in getattr(fullw2v, counts, {}).items()
+                        if v]
                 if took:
                     kernels[name]["instantiation"] = took[0]
     # K4 on the sharded pipeline's first batch (one shard, default head)
@@ -133,11 +146,16 @@ def measure(tree: str, S: int, batches: int, seed: int, reps: int) -> dict:
             static.tile, step.plan_uniq, step.plan_scatter, step.plan_ucount,
             step.plan_strict)
     windows = int(batch.lengths.sum())
+    parts = [t.clone() for t in (hot_in, hot_out, got_in, got_out)]
+    fullw2v.fullw2v_cuda_tiled_fused(*parts, *args,
+                                     gemm_windows=static.gemm_windows)
+    sha = digest(*parts)
     ms = time_ms(lambda: fullw2v.fullw2v_cuda_tiled_fused(
         hot_in, hot_out, got_in, got_out, *args,
         gemm_windows=static.gemm_windows))
     kernels["cuda_tiled_fused"] = {"ms": ms, "windows": windows,
-                                   "us_per_window": ms * 1e3 / windows}
+                                   "us_per_window": ms * 1e3 / windows,
+                                   "sha256": sha}
     out["kernels"] = kernels
     return out
 
