@@ -5,6 +5,8 @@ main path and times the kernels.
 
     python3 chip_smoke.py [--seed 0] [--sentences-per-batch 10000]
 
+About 6 min on an H100, most of it in the plain versions of phase 5.
+
 Phases (each prints one line; any failure raises and the script exits
 non-zero):
 
@@ -40,6 +42,33 @@ non-zero):
               its mean unique rows per tile, and the columns the
               cross-tile prefetch took and rejected (the kernel's device
               counters, held against the host's count from the plan).
+6. prefetch — the main path again through the async host pipeline on
+              phase 4's corpus: T=1 ``auto`` with 2 and 4 thread workers
+              and 2 process workers, T=8 ``auto`` with 2 thread and 2
+              process workers; each must launch its phase-4 kernel once
+              per batch and end with phase 4's synchronous tables bit for
+              bit. Prints words/s, s per step, the steady step cadence
+              after the first batch, host batching (the pipeline's wall
+              clock) and host wait per step, the first batch's wait,
+              ``device_busy_frac``, the queue's mean ready depth and its
+              high-water mark.
+7. resume   — T=1 ``auto`` and the T=8 vocab-sharded session (K4), each
+              with 2 process workers and a checkpoint every batch: 2
+              batches, the session dropped, a new one on the same
+              directory resumes at batch 2 (``skip_batches`` 2) and
+              trains the third, bit-identical to phase 4's run; the
+              sharded checkpoint at batch 2 also restores into a
+              replicated T=8 session, whose third batch gives phase 4's
+              replicated tables bit for bit. Prints save and restore ms
+              per checkpoint and its bytes.
+8. chaos    — ``repro_torch.train.chaos.run_chaos`` with the ``heal``
+              schedule (two failed steps, a killed process worker, a
+              truncated newest checkpoint, NaN in ``w_in``) at d=128, T=1
+              ``auto``, 2 process workers, at phase 4's S: the faulted
+              run must end with the fault-free run's digest, every fault
+              fired, at least one pool heal and one quarantined
+              checkpoint. Prints the report and the health probe's cost
+              per batch.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the repository's ``src/`` beside it, the script fails before
@@ -48,10 +77,13 @@ printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -353,18 +385,29 @@ def phase_parity_tiled_runtime_shape(torch, np, seed):
           instantiation="runtime", max_abs_err=f"{err:.3e}")
 
 
-def make_pipeline(args, tile: int, **shard):
+def make_config(args, tile: int, **kw):
+    """The main path's configuration: the paper's widths at S=args.S."""
     from repro_torch.configs.w2v import W2VConfig
-    from repro_torch.data.batching import BatchingPipeline
+
+    return W2VConfig(dim=128, window=5, negatives=5, epochs=1, min_count=1,
+                     subsample_t=0.0, sentences_per_batch=args.S,
+                     max_sentence_len=64, tile_windows=tile,
+                     tile_gemm_windows=4, seed=args.seed, **kw)
+
+
+def make_corpus(args, n_sentences: int):
     from repro_torch.data.corpus import synthetic_cluster_corpus
 
-    cfg = W2VConfig(dim=128, window=5, negatives=5, epochs=1, min_count=1,
-                    subsample_t=0.0, sentences_per_batch=args.S,
-                    max_sentence_len=64, tile_windows=tile,
-                    tile_gemm_windows=4, seed=args.seed, **shard)
-    corpus = synthetic_cluster_corpus(
+    return synthetic_cluster_corpus(
         n_clusters=64, words_per_cluster=65536 // 64,
-        n_sentences=args.S * args.batches, mean_len=24, seed=args.seed)
+        n_sentences=n_sentences, mean_len=24, seed=args.seed)
+
+
+def make_pipeline(args, tile: int, **shard):
+    from repro_torch.data.batching import BatchingPipeline
+
+    cfg = make_config(args, tile, **shard)
+    corpus = make_corpus(args, args.S * args.batches)
     return BatchingPipeline(corpus, cfg), cfg, corpus
 
 
@@ -680,6 +723,232 @@ def phase_main_shape(torch, np, pipe, cfg, names):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 6-8: prefetch workers, checkpoints with exact resume, chaos
+# ---------------------------------------------------------------------------
+
+def _same_tables(torch, name, got, want) -> None:
+    """Raise unless two sessions' tables are equal bit for bit."""
+    a, b = got.state.params(), want.state.params()
+    if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError(f"{name}: tables differ from the synchronous "
+                             f"run's")
+
+
+def _launched(kernel, want_at_least) -> int:
+    """Launches of ``kernel`` since the last reset; raise unless at least
+    ``want_at_least`` and no other kernel ran."""
+    from repro_torch.kernels import fullw2v
+
+    launches = dict(fullw2v.LAUNCHES)
+    others = {k: v for k, v in launches.items() if k != kernel and v}
+    if launches[kernel] < want_at_least or others:
+        raise AssertionError(f"{kernel}: {launches[kernel]} launches, "
+                             f"wanted {want_at_least} ({launches})")
+    return launches[kernel]
+
+
+def phase_prefetch(torch, np, args, base, workers: int, mode: str):
+    """The main path again through the async pipeline (``workers`` of
+    ``mode``) on phase 4's corpus and vocabulary: the same kernels
+    ``args.batches`` times and tables bit-identical to phase 4's
+    synchronous run ``base``."""
+    from repro_torch.core.trainer import TrainSession
+    from repro_torch.data.prefetch import AsyncBatchingPipeline
+    from repro_torch.kernels import fullw2v
+
+    cfg = dataclasses.replace(base.cfg, prefetch_workers=workers,
+                              prefetch_mode=mode)
+    pipe = AsyncBatchingPipeline(base.pipeline.corpus, cfg,
+                                 vocab=base.pipeline.vocab)
+    sess = TrainSession(pipe, cfg, backend="auto", device="cuda")
+    waits, stamps = [], []
+
+    def seen(m):
+        waits.append(m.fetch_seconds)
+        stamps.append(time.perf_counter())
+
+    sess.on_metrics = seen
+    fullw2v.reset_launch_counts()
+    sess.train(max_batches=args.batches)
+    n = _launched(base.backend, args.batches)
+    took = {k: v for k, v in {**fullw2v.SEQ_LAUNCHES,
+                              **fullw2v.TILED_LAUNCHES}.items() if v}
+    if len(took) != 1:
+        raise AssertionError(f"prefetch run took {took}")
+    _same_tables(torch, f"T={cfg.tile_windows} {mode} x{workers}", sess,
+                 base)
+    batches = sess.state.batches_seen
+    out = dict(words_per_s=sess.words_per_sec,
+               s_per_step=sess.wall_seconds / batches,
+               host_batching_s_per_step=pipe.stats.seconds / batches,
+               host_wait_s_per_step=sess.fetch_seconds / batches,
+               first_wait_s=waits[0],
+               later_wait_s_per_step=sum(waits[1:]) / max(1, batches - 1),
+               # launch to launch after the first batch: the steady cadence
+               steady_s_per_step=(stamps[-1] - stamps[0]) / max(1,
+                                                               batches - 1),
+               device_busy_frac=sess.device_busy_frac,
+               mean_depth=pipe.prefetch.mean_depth,
+               max_in_flight=pipe.prefetch.max_in_flight,
+               heals=pipe.prefetch.heals)
+    _line("prefetch", T=cfg.tile_windows, backend=sess.backend, mode=mode,
+          workers=workers, depth=pipe.depth, batches=batches, launches=n,
+          words_per_s=f"{out['words_per_s']:.0f}",
+          **{k: f"{v:.4f}" for k, v in out.items()
+             if k not in ("words_per_s", "max_in_flight", "heals")},
+          max_in_flight=out["max_in_flight"], instantiation=next(iter(took)),
+          bitwise="==sync")
+    return out
+
+
+def _ckpt_bytes(d: str) -> int:
+    from repro_torch.train import checkpoint as ckpt
+
+    step = ckpt.latest_step(d)
+    sd = os.path.join(d, f"step_{step:08d}")
+    return sum(os.path.getsize(os.path.join(sd, f)) for f in os.listdir(sd))
+
+
+def _timed_saves(torch, sess, saves: list) -> None:
+    """Time every checkpoint the session writes, from a synchronize (so
+    the step's kernel is not counted) to the published directory."""
+    save = sess.save_checkpoint
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save()
+        saves.append(time.perf_counter() - t0)
+        return path
+
+    sess.save_checkpoint = timed
+
+
+def phase_resume(torch, np, args, base, tmp: str, name: str, workers: int):
+    """Train ``args.batches - 1`` batches checkpointing each, drop the
+    session, resume a new one on the same directory at that batch and
+    train the last: bit-identical to phase 4's uninterrupted ``base``.
+    Returns the timings and a copy of the directory as the first session
+    left it (the resumed one adds a newer checkpoint)."""
+    from repro_torch.core.trainer import TrainSession
+    from repro_torch.data.prefetch import make_pipeline as make_pipe
+    from repro_torch.kernels import fullw2v
+
+    cfg = dataclasses.replace(base.cfg, prefetch_workers=workers,
+                              prefetch_mode="process")
+    corpus, vocab = base.pipeline.corpus, base.pipeline.vocab
+    d = os.path.join(tmp, name)
+    first = args.batches - 1
+    saves = []
+    sess = TrainSession(make_pipe(corpus, cfg, vocab), cfg, device="cuda",
+                        ckpt_dir=d, ckpt_every=1)
+    _timed_saves(torch, sess, saves)
+    sess.train(max_batches=first)
+    del sess
+    copy = d + ".first"
+    shutil.copytree(d, copy)
+    resumed = TrainSession(make_pipe(corpus, cfg, vocab), cfg, device="cuda",
+                           ckpt_dir=d, ckpt_every=1)
+    if resumed.resumed_step != first or resumed._resume_skip != first:
+        raise AssertionError(f"{name}: resumed at {resumed.resumed_step} "
+                             f"(skip {resumed._resume_skip}), not {first}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed.restore_latest()              # the same step again, timed
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    _timed_saves(torch, resumed, saves)
+    fullw2v.reset_launch_counts()
+    resumed.train(max_batches=args.batches - first)
+    kernel = "cuda_tiled_fused" if resumed.placement is not None else \
+        resumed.backend
+    n = _launched(kernel, args.batches - first)
+    if resumed.state.epoch_batch != args.batches:
+        raise AssertionError(f"{name}: ended at batch "
+                             f"{resumed.state.epoch_batch}")
+    _same_tables(torch, f"{name} resumed", resumed, base)
+    out = dict(save_ms=1e3 * sum(saves) / len(saves), saves=len(saves),
+               restore_ms=1e3 * restore_s, ckpt_bytes=_ckpt_bytes(d))
+    _line("resume", run=name, T=cfg.tile_windows, backend=resumed.backend,
+          workers=f"{workers}xprocess", resumed_step=resumed.resumed_step,
+          skip_batches=first, launches_after_resume=n, kernel=kernel,
+          save_ms=f"{out['save_ms']:.1f}", saves=out["saves"],
+          restore_ms=f"{out['restore_ms']:.1f}", ckpt_bytes=out["ckpt_bytes"],
+          bitwise="==uninterrupted")
+    return out, copy
+
+
+def phase_cross_restore(torch, args, base8, d_sharded):
+    """The sharded run's checkpoint at batch ``args.batches - 1`` restored
+    into a replicated T=8 session (merged through the recorded placement):
+    it trains the last batch to phase 4's replicated T=8 tables, bit for
+    bit."""
+    from repro_torch.core.trainer import TrainSession
+    from repro_torch.data.batching import BatchingPipeline
+    from repro_torch.kernels import fullw2v
+
+    cfg = base8.cfg
+    sess = TrainSession(BatchingPipeline(base8.pipeline.corpus, cfg,
+                                         vocab=base8.pipeline.vocab), cfg,
+                        device="cuda", ckpt_dir=d_sharded)
+    if sess.placement is not None or sess.resumed_step != args.batches - 1:
+        raise AssertionError(f"cross-layout restore resumed at "
+                             f"{sess.resumed_step}")
+    fullw2v.reset_launch_counts()
+    sess.train(max_batches=1)
+    n = _launched("cuda_tiled", 1)
+    _same_tables(torch, "sharded checkpoint -> replicated T=8", sess, base8)
+    _line("resume", run="sharded checkpoint -> replicated T=8",
+          resumed_step=sess.resumed_step, launches_after_resume=n,
+          kernel="cuda_tiled", bitwise="==uninterrupted replicated T=8")
+
+
+def phase_chaos(torch, args):
+    """``run_chaos`` with the reference's fault kinds (the ``heal``
+    schedule: failed steps, a killed process worker, a truncated newest
+    checkpoint, NaN in ``w_in``) on the card at d=128, T=1 auto, two
+    process workers; the supervised run must end with the fault-free
+    run's bits."""
+    from repro_torch.kernels import fullw2v
+    from repro_torch.train.chaos import SCHEDULES, run_chaos
+
+    sched = SCHEDULES["heal"]
+    S = args.S
+    cfg = make_config(args, 1)
+    # ~5 batches an epoch, so the 10-batch schedule crosses the boundary
+    corpus = make_corpus(args, S * 9 // 2)
+    fullw2v.reset_launch_counts()
+    r = run_chaos(sched, backend="auto", device="cuda", cfg=cfg,
+                  corpus=corpus)
+    n = _launched(r["backend"], sched.max_batches + r["batches"])
+    bad = []
+    if r["digest_match"] != 1:
+        bad.append("the faulted run's tables differ from the fault-free "
+                   "run's")
+    if r["faults_fired"] != r["faults_scheduled"]:
+        bad.append(f"{r['faults_fired']}/{r['faults_scheduled']} faults")
+    if r["heals"] < 1 or r["workers_killed"] < 1:
+        bad.append(f"heals={r['heals']} workers_killed="
+                   f"{r['workers_killed']}")
+    if r["ckpt_quarantined"] < 1:
+        bad.append("the truncated checkpoint was never quarantined")
+    if bad:
+        raise AssertionError(f"chaos: {'; '.join(bad)} ({r})")
+    probe_ms = 1e3 * r["probe_seconds"] / max(1, r["probes"])
+    _line("chaos", schedule="heal", S=S, d=cfg.dim, T=1,
+          backend=r["backend"], workers="2xprocess", launches=n,
+          **{k: r[k] for k in ("digest_match", "faults_fired",
+                               "faults_scheduled", "restarts", "rollbacks",
+                               "health_failures", "heals", "workers_killed",
+                               "ckpts_truncated", "ckpt_quarantined",
+                               "batches", "probes")},
+          probe_ms_per_batch=f"{probe_ms:.3f}",
+          recovery_s=f"{r['recovery_seconds']:.3f}",
+          wall_s=f"{r['wall_seconds']:.3f}")
+    return r
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -687,6 +956,8 @@ def main(argv=None) -> int:
                     default=10_000)
     ap.add_argument("--batches", type=int, default=3)
     args = ap.parse_args(argv)
+    if args.batches < 2:
+        ap.error("--batches must be at least 2: phase 7 resumes mid-run")
 
     import numpy as np
     import torch
@@ -759,6 +1030,22 @@ def main(argv=None) -> int:
                                    ["cuda_tiled"]))
     timing["cuda_tiled_fused"] = phase_sharded_shape(torch, np, sess_vs,
                                                      s_fused)
+
+    # 6. prefetch workers on the main path, bit for bit against phase 4
+    for workers, mode in ((2, "thread"), (4, "thread"), (2, "process")):
+        phase_prefetch(torch, np, args, sess1, workers, mode)
+    for workers, mode in ((2, "thread"), (2, "process")):
+        phase_prefetch(torch, np, args, sess8, workers, mode)
+
+    # 7. checkpoints: resume mid-epoch, and across table layouts
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        phase_resume(torch, np, args, sess1, tmp, "T=1 auto", 2)
+        _, d_vs = phase_resume(torch, np, args, sess_vs, tmp,
+                               "T=8 sharded", 2)
+        phase_cross_restore(torch, args, sess8, d_vs)
+
+    # 8. supervised recovery through the reference's fault kinds
+    phase_chaos(torch, args)
     files = {"cuda": "src/repro_torch/kernels/csrc/seq.cuh",
              "cuda_pipelined": "src/repro_torch/kernels/csrc/seq.cuh",
              "cuda_tiled": "src/repro_torch/kernels/csrc/tiled.cuh",

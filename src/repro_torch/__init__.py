@@ -6,10 +6,12 @@ This package imports ``torch``, numpy and the standard library only — never
 
 configs/w2v.py   — ``W2VConfig`` (copied verbatim)
 data/            — host batching (numpy copies: bit-identical batches/plans)
+                   and the async prefetch pipeline (``data/prefetch.py``)
 core/sgns.py     — the window math in torch
 core/trainer.py  — ``TrainSession`` over ``kernels.ops.step``
 core/quality.py  — planted-cluster quality metrics (numpy copy)
 kernels/         — plain torch versions, CUDA kernels, registry, ``step``
+train/           — checkpoints, recovery primitives, the supervisor, chaos
 convert.py       — start from the reference's tables
 launch/train.py  — ``python -m repro_torch.launch.train w2v``
 

@@ -217,12 +217,14 @@ class Batch:
     epoch: int = 0
     index: int = 0
 
-    def step_inputs(self, lr, device) -> "StepInputs":
+    def step_inputs(self, lr, device, put=None) -> "StepInputs":
         """Lift this host batch onto ``device`` as the engine API's
-        ``repro_torch.kernels.registry.StepInputs``, tile plan included."""
+        ``repro_torch.kernels.registry.StepInputs``, tile plan included
+        (``put``: see ``StepInputs.from_batch``)."""
         # local import: keeps this module torch-free until a step is built
+        # (process prefetch workers import it and never torch)
         from repro_torch.kernels.registry import StepInputs
-        return StepInputs.from_batch(self, lr, device)
+        return StepInputs.from_batch(self, lr, device, put=put)
 
 
 @dataclasses.dataclass

@@ -301,9 +301,13 @@ class VocabExchange:
         row = self.row_bytes(dim, dtype) if dtype else dim * itemsize
         return n * self.bucket_capacity * row * 2 * 2
 
-    def step_inputs(self, lr, device) -> "Any":
+    def step_inputs(self, lr, device, put=None) -> "Any":
         """Lift onto ``device`` as a vocab-sharded ``StepInputs`` (the
-        port's ``repro_torch.kernels.registry.StepInputs``)."""
+        port's ``repro_torch.kernels.registry.StepInputs``). ``put``
+        (numpy array -> device tensor) replaces the blocking copy, e.g.
+        with the trainer's pinned, non_blocking one."""
+        # local import: keeps this module torch-free until a step is built
+        # (process prefetch workers import it and never torch)
         import torch
 
         from repro_torch.kernels.registry import StepInputs
@@ -311,9 +315,9 @@ class VocabExchange:
             raise NotImplementedError(
                 "doc2vec/subword exchange plans (docs, bags) arrive with a "
                 "later slice of the torch port")
-
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        if put is None:
+            def put(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
         kw = {}
         if self.plan_uniq is not None:

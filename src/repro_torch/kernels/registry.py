@@ -85,19 +85,18 @@ class StepInputs:
         return self.plan_uniq.shape[-1] // m
 
     @classmethod
-    def from_batch(cls, batch: "Batch", lr, device) -> "StepInputs":
+    def from_batch(cls, batch: "Batch", lr, device,
+                   put: Optional[Callable] = None) -> "StepInputs":
         """Lift a host :class:`~repro_torch.data.batching.Batch` (numpy)
         onto ``device``, carrying its tile plan along when one is
-        attached."""
+        attached. ``put`` (numpy array -> device tensor) replaces the
+        blocking copy, e.g. with the trainer's pinned, non_blocking one."""
         if getattr(batch, "docs", None) is not None or \
                 getattr(batch, "bags", None) is not None:
             raise NotImplementedError(
                 "doc2vec/subword batches (Batch.docs, Batch.bags) arrive "
                 "with a later slice of the torch port")
-
-        def put(a):
-            return torch.from_numpy(a).to(device)
-
+        put = put or (lambda a: torch.from_numpy(a).to(device))
         kw = {}
         if batch.plan is not None:
             p = batch.plan

@@ -8,10 +8,17 @@ defaults, on the GPU unless ``--device cpu`` is given:
 
 ``--vocab-shard`` (one shard) and ``--hot-vocab-frac`` train with a
 vocab-sharded table; ``--tables`` takes f32 specs on at most one shard.
-Flags of features that arrive with later slices of the port (other
-workloads, more than one vocab shard, mixed-precision ``--tables``,
-checkpoints, resilience, prefetch workers) are accepted by the parser and
-exit with an error that says so.
+``--prefetch-workers/--prefetch-depth/--prefetch-mode`` run the async host
+pipeline (``repro_torch.data.prefetch``), ``--ckpt-dir/--ckpt-every``
+checkpoint and resume, and ``--max-restarts/--step-timeout/--health-every
+/--reset-after`` train under the recovery supervisor
+(``TrainSession.train_resilient``). Flags of features that arrive with
+later slices of the port (other workloads, more than one vocab shard,
+mixed-precision ``--tables``) are accepted by the parser and exit with an
+error that says so.
+
+The module imports no torch at top level: process prefetch workers import
+the ``python -m`` module as their ``__mp_main__``.
 """
 from __future__ import annotations
 
@@ -21,8 +28,6 @@ import sys
 from typing import List, Optional
 
 import numpy as np
-
-from repro_torch.kernels import registry
 
 WORKLOADS = ("w2v", "doc2vec", "node2vec", "subword")
 
@@ -49,12 +54,6 @@ def _unsupported(args) -> Optional[str]:
         (_tables_later_slice(args.tables),
          f"--tables {args.tables} (mixed precision or more than one "
          f"shard)"),
-        (args.ckpt_dir is not None, "--ckpt-dir"),
-        (args.max_restarts > 0 or args.step_timeout > 0
-         or args.health_every > 0 or args.reset_after > 0,
-         "resilience flags (--max-restarts/--step-timeout/--health-every/"
-         "--reset-after)"),
-        (args.prefetch_workers > 0, "--prefetch-workers > 0"),
     )
     for bad, flag in checks:
         if bad:
@@ -66,8 +65,8 @@ def run_w2v(args) -> int:
     from repro_torch.configs.w2v import W2VConfig
     from repro_torch.core.quality import evaluate
     from repro_torch.core.trainer import TrainSession
-    from repro_torch.data.batching import BatchingPipeline
     from repro_torch.data.corpus import synthetic_cluster_corpus
+    from repro_torch.data.prefetch import AsyncBatchingPipeline, make_pipeline
 
     flag = _unsupported(args)
     if flag is not None:
@@ -83,6 +82,9 @@ def run_w2v(args) -> int:
                     tile_windows=args.tile_windows,
                     tile_gemm_windows=args.tile_gemm_windows,
                     pad_len=args.pad_len,
+                    prefetch_workers=args.prefetch_workers,
+                    prefetch_depth=args.prefetch_depth,
+                    prefetch_mode=args.prefetch_mode,
                     vocab_shard=bool(args.vocab_shard),
                     hot_vocab_frac=args.hot_vocab_frac,
                     tables=args.tables)
@@ -92,24 +94,50 @@ def run_w2v(args) -> int:
         n_clusters=args.clusters,
         words_per_cluster=max(args.vocab // args.clusters, 1),
         n_sentences=args.sentences, mean_len=24, seed=0)
-    pipe = BatchingPipeline(corpus, cfg)
+    pipe = make_pipeline(corpus, cfg)
     print(f"workload=w2v vocab={pipe.vocab.size} "
           f"params={2 * pipe.table_rows * cfg.dim / 1e6:.1f}M "
           f"words/epoch={pipe.epoch_words}")
-    print("pipeline=sync")
+    if isinstance(pipe, AsyncBatchingPipeline):
+        print(f"pipeline=async(workers={pipe.workers} depth={pipe.depth} "
+              f"mode={pipe.mode})")
+    else:
+        print("pipeline=sync")
     trainer = TrainSession(pipe, cfg, backend=args.backend,
-                           device=args.device)
+                           device=args.device, ckpt_dir=args.ckpt_dir,
+                           ckpt_every=args.ckpt_every)
     print(f"backend={trainer.backend} device={trainer.device}")
     if trainer.placement is not None:
         p = trainer.placement
         print(f"vocab_shard: hot={p.hot} cold={p.cold} shards={p.n_shards} "
               f"rows/device={p.rows_per_device} "
               f"(replicated would be {p.vocab_size})")
-    trainer.train(max_batches=args.max_batches)
+    if trainer.resumed_step is not None:
+        print(f"resumed from checkpoint batch {trainer.resumed_step} "
+              f"({trainer.state.words_seen:,} words seen)")
+    resilient = (args.max_restarts > 0 or args.step_timeout > 0
+                 or args.health_every > 0)
+    if resilient:
+        trainer.train_resilient(
+            max_batches=args.max_batches,
+            max_restarts=args.max_restarts or 3,
+            step_timeout_s=args.step_timeout,
+            health_every=args.health_every,
+            reset_after=args.reset_after)
+        r = trainer.last_report
+        print(f"resilience: restarts={r.restarts} rollbacks={r.rollbacks} "
+              f"health_failures={r.health_failures} timeouts={r.timeouts} "
+              f"skipped={r.batches_skipped} "
+              f"recovery_seconds={r.recovery_seconds:.3f}")
+    else:
+        trainer.train(max_batches=args.max_batches)
+    if args.ckpt_dir:
+        print("checkpoint:", trainer.save_checkpoint())
     print(f"throughput: {trainer.words_per_sec:,.0f} words/sec "
           f"({trainer.state.words_seen:,} words) "
           f"device_busy_frac={trainer.device_busy_frac:.3f}")
-    # bit-exactness witness: identical configs print identical digests
+    # bit-exactness witness: identical configs print identical digests,
+    # whatever the prefetch worker count or a resume in between
     digest = hashlib.sha1()
     for part in trainer.state.params().values():
         digest.update(part.detach().cpu().numpy().tobytes())
@@ -123,6 +151,8 @@ def run_w2v(args) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from repro_torch.kernels import registry
+
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     sub = ap.add_subparsers(dest="mode", required=True)
     w = sub.add_parser("w2v")

@@ -1,7 +1,9 @@
 """The torch port stands alone: importing ``repro_torch`` (every module,
-``repro_torch.distributed`` included) and ``chip_smoke`` leaves ``jax`` and
-the reference package ``repro`` unloaded, and no source of the port names
-them in an import."""
+``repro_torch.distributed`` and ``repro_torch.train`` included) and
+``chip_smoke`` leaves ``jax`` and the reference package ``repro``
+unloaded, and no source of the port names them in an import. A process
+prefetch worker's import path (and the CLI module, which such a worker
+imports as its main module) leaves ``torch`` unloaded too."""
 import ast
 import os
 import pathlib
@@ -29,14 +31,49 @@ def test_import_leaves_jax_and_reference_unloaded():
                      or n == "repro" or n.startswith("repro."))
         print("MODULES", len(mods))
         print("DISTRIBUTED", "repro_torch.distributed.vocab_placement" in mods)
+        print("TRAIN", sorted(m for m in mods if m.startswith(
+            "repro_torch.train.")))
         print("BAD", bad)
     """.format(repo=REPO)
     out = run_subprocess(code, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("MODULES")[1].split()[0])
-    assert n >= 19, out.stdout       # every module of the package imported
+    assert n >= 25, out.stdout       # every module of the package imported
     assert "DISTRIBUTED True" in out.stdout, out.stdout
+    for mod in ("chaos", "checkpoint", "resilience", "supervisor"):
+        assert f"'repro_torch.train.{mod}'" in out.stdout, out.stdout
+    assert "'repro_torch.data.prefetch'" not in out.stdout  # not train.*
+
+
+def test_worker_import_path_is_torch_free():
+    """What a process prefetch worker imports — the finalize path with a
+    vocab-sharding placement — and the CLI module (a worker's
+    ``__mp_main__`` under ``python -m``) load neither torch nor jax nor
+    the reference."""
+    code = """
+        import sys
+        from repro_torch.configs.w2v import smoke
+        from repro_torch.data.corpus import synthetic_zipf_corpus
+        from repro_torch.data import prefetch
+        from repro_torch.distributed.vocab_placement import VocabPlacement
+        import repro_torch.launch.train
+        cfg = smoke(sentences_per_batch=16, max_sentence_len=16,
+                    tile_windows=4, vocab_shard=True)
+        pipe = prefetch.AsyncBatchingPipeline(
+            synthetic_zipf_corpus(vocab_size=100, n_sentences=40,
+                                  mean_len=8, seed=0), cfg, workers=1)
+        pipe.placement = VocabPlacement.plan(pipe.vocab.counts, 2)
+        packed = next(pipe._packed(16, 0))
+        prefetch._proc_init(cfg, pipe.sampler, pipe.placement, None)
+        batch = prefetch._proc_finalize(packed, 0)
+        assert batch.plan is not None and batch.exchange is not None
+        print("BAD", sorted(n for n in sys.modules
+                            if n.split(".")[0] in ("torch", "jax", "repro")))
+    """
+    out = run_subprocess(code, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
 
 
 def _imported_roots(path: pathlib.Path):

@@ -1,7 +1,8 @@
 """The port's training session against the reference's: three batches from
 the same tables (``params_from_reference``) agree within the kernel
 tolerance at T=1 and at T=8; the session refuses to fall back to the CPU
-silently; the CLI runs end to end on the CPU."""
+silently; the CLI runs end to end on the CPU, prints the same digest with
+prefetch workers as without, and resumes from its checkpoints."""
 import os
 import subprocess
 import sys
@@ -87,7 +88,7 @@ def test_cuda_backend_on_cpu_session_raises():
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()),
-                                dict(ckpt_dir="ckpt"),
+                                dict(cfg_tables="shards=2"),
                                 dict(cfg_tables="hot=bf16"),
                                 dict(cfg_tables="cold=int8,shards=2")])
 def test_later_slice_features_raise(kw):
@@ -133,3 +134,36 @@ def test_cli_runs_on_cpu(tile):
 def test_cli_rejects_later_slice_flags():
     out = _cli("--device", "cpu", "--workload", "doc2vec")
     assert out.returncode == 2 and "later slice" in out.stderr
+
+
+_SMALL = ("--device", "cpu", "--vocab", "128", "--clusters", "8",
+          "--sentences", "80", "--sentences-per-batch", "16", "--epochs",
+          "1")
+
+
+def _digest(out):
+    assert out.returncode == 0, out.stderr
+    return out.stdout.split("final_digest=")[1].split()[0]
+
+
+def test_cli_prefetch_workers_keep_the_digest():
+    sync = _cli(*_SMALL, "--max-batches", "4")
+    assert "pipeline=sync" in sync.stdout
+    pref = _cli(*_SMALL, "--max-batches", "4", "--prefetch-workers", "2")
+    assert "pipeline=async(workers=2 depth=2 mode=thread)" in pref.stdout
+    assert _digest(pref) == _digest(sync)
+
+
+def test_cli_checkpoint_run_resumes(tmp_path):
+    """A --ckpt-dir run stopped after 2 batches, run again, resumes at
+    batch 2 and ends with the uninterrupted run's digest."""
+    full = _cli(*_SMALL)
+    d = str(tmp_path / "ck")
+    first = _cli(*_SMALL, "--max-batches", "2", "--ckpt-dir", d,
+                 "--ckpt-every", "1")
+    assert "checkpoint:" in first.stdout and _digest(first) != _digest(full)
+    again = _cli(*_SMALL, "--ckpt-dir", d, "--ckpt-every", "1",
+                 "--health-every", "1")
+    assert "resumed from checkpoint batch 2" in again.stdout, again.stdout
+    assert "resilience: restarts=0" in again.stdout
+    assert _digest(again) == _digest(full)

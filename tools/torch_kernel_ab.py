@@ -4,15 +4,18 @@ one GPU, in turns (A, B, B, A), so that two versions are compared on the
 same card in the same call.
 
     python3 tools/torch_kernel_ab.py --tree build/parent --tree . \
-        [--sentences-per-batch 10000] [--batches 3] [--seed 0]
+        [--sentences-per-batch 10000] [--batches 3] [--seed 0] [--rounds 1]
 
 Each turn is a fresh process that imports ``repro_torch`` from
 ``<tree>/src`` (its kernels build into ``<tree>/build/``) and measures, at
 the paper's width (d=128, W=5 so w_f=3, N=5, the 65,536-word cluster
 corpus of ``chip_smoke.py``):
 
-* the T=1 and the T=8 ``auto`` trainers (``TrainSession``: K2, then K3):
-  seconds per step and words per second over ``--batches`` batches;
+* the T=1 and the T=8 ``auto`` trainers (``TrainSession`` on the
+  synchronous pipeline: K2, then K3): seconds per step, words per second,
+  host batching seconds per step (the pipeline's clock), the step loop's
+  wait on the host per step (``fetch_seconds``: batching plus the lift
+  onto the card) and ``device_busy_frac``, over ``--batches`` batches;
 * K1 (``cuda``) and K2 (``cuda_pipelined``) on the trainer's first batch,
   K3 (``cuda_tiled``, T=8, G=4) on the T=8 pipeline's first batch and K4
   (the split-table ``update_fused``) on the one-shard vocab-sharded
@@ -21,7 +24,8 @@ corpus of ``chip_smoke.py``):
   tables after one launch from tables drawn from a generator seeded with
   0 (the same in every tree, so equal digests mean the same bits).
 
-Each turn prints one JSON line; the parent prints them and, last, one JSON
+``--rounds R`` repeats the four turns R times. Each turn prints one JSON
+line; the parent prints them and, last, one JSON
 object with every turn and the card's name and power limit (nvidia-smi).
 Needs a CUDA device; exits non-zero without one.
 """
@@ -86,11 +90,14 @@ def measure(tree: str, S: int, batches: int, seed: int, reps: int) -> dict:
                             device="cuda")
         sess.train(max_batches=batches)
         torch.cuda.synchronize()
-        out[key] = {"backend": sess.backend,
-                    "batches": sess.state.batches_seen,
-                    "s_per_step": sess.wall_seconds
-                    / sess.state.batches_seen,
-                    "words_per_s": sess.words_per_sec}
+        n = sess.state.batches_seen
+        out[key] = {"backend": sess.backend, "batches": n,
+                    "s_per_step": sess.wall_seconds / n,
+                    "words_per_s": sess.words_per_sec,
+                    "host_batching_s_per_step":
+                        sess.pipeline.stats.seconds / n,
+                    "host_wait_s_per_step": sess.fetch_seconds / n,
+                    "device_busy_frac": sess.device_busy_frac}
 
     def tables(rows, d):
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -169,6 +176,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="repeat the turns A, B, B, A this many times")
     ap.add_argument("--measure", action="store_true",
                     help=argparse.SUPPRESS)     # one turn, in this process
     args = ap.parse_args(argv)
@@ -191,7 +200,8 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     a, b = args.tree
     turns = []
-    for tree in (a, b, b, a):
+    order = [a, b, b, a] * args.rounds
+    for tree in order:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--measure",
              "--tree", tree, "--sentences-per-batch", str(args.S),
@@ -203,7 +213,7 @@ def main(argv=None) -> int:
         turn = json.loads(proc.stdout.strip().splitlines()[-1])
         print(json.dumps(turn), flush=True)
         turns.append(turn)
-    print(json.dumps({"card": smi, "order": [a, b, b, a], "turns": turns}),
+    print(json.dumps({"card": smi, "order": order, "turns": turns}),
           flush=True)
     return 0
 
