@@ -5,7 +5,7 @@ main path and times the kernels.
 
     python3 chip_smoke.py [--seed 0] [--sentences-per-batch 10000]
 
-About 6 min on an H100, most of it in the plain versions of phase 5.
+About 8 min on an H100, most of it in the plain versions of phase 5.
 
 Phases (each prints one line; any failure raises and the script exits
 non-zero):
@@ -69,6 +69,25 @@ non-zero):
               fired, at least one pool heal and one quarantined
               checkpoint. Prints the report and the health probe's cost
               per batch.
+9. mixed    — mixed-precision tables (bf16 and int8 storage with keyed
+              stochastic rounding). ``encode_stochastic`` for bf16 and int8
+              on a (V, 128) f32 table on the card must give the CPU run's
+              bytes. Then 3 batches at phase 4's shapes for each of
+              ``hot=bf16`` T=1 (K2), ``hot=bf16`` T=8 (K3),
+              ``hot=bf16,cold=bf16,shards=1`` T=8 (K4) and
+              ``hot=bf16,cold=int8,shards=1,master=1`` T=8 (K4, the f32
+              master copy): a first run of one batch holds every stochastic
+              encode of the step (its f32 input: the kernel's output on the
+              card) against the CPU codec's bytes; the 3-batch run must
+              launch its kernel once per batch and prints words/s, s per
+              step, the codec's ms per step (CUDA events around each decode
+              and encode inside the step) and the tables' device bytes
+              against f32. The int8 run resumes from a checkpoint bit for
+              bit (as phase 7). Last, the reference's quality gate on the
+              card: bench_quality's shape (d=64, S=128, L=48, 8 clusters of
+              16 words, 8 epochs), ``hot=bf16:frac=0.1,cold=int8,shards=1,
+              master=1`` (K1) against f32 (K2) on the same batches; the
+              separation ratio must lie in 1.00 ± 0.01.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the repository's ``src/`` beside it, the script fails before
@@ -77,6 +96,7 @@ printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -412,12 +432,13 @@ def make_pipeline(args, tile: int, **shard):
 
 
 def phase_trainer(torch, np, args, tile: int, backend: str, expect: str,
-                  **shard):
+                  around_train=None, **shard):
     """One main-path run; returns (session, launches, seconds/step, the
     K1/K2 instantiation it took or None, host seconds/step). Host seconds:
     the pipeline's numpy batching (``BatchingStats.seconds``) and the step
     loop's wait on the host pipeline (``fetch_seconds``: batching and the
-    host-to-device copies), each per step."""
+    host-to-device copies), each per step. ``around_train``: a context
+    manager entered around the training run alone."""
     from repro_torch.core.quality import evaluate
     from repro_torch.core.trainer import TrainSession
     from repro_torch.kernels import fullw2v
@@ -429,7 +450,8 @@ def phase_trainer(torch, np, args, tile: int, backend: str, expect: str,
                              f"{sess.backend!r}, expected {expect!r}")
     w0 = sess.state.w_in.clone()
     fullw2v.reset_launch_counts()
-    sess.train(max_batches=args.batches)
+    with around_train or contextlib.nullcontext():
+        sess.train(max_batches=args.batches)
     launches = dict(fullw2v.LAUNCHES)
     seq = {k: v for k, v in fullw2v.SEQ_LAUNCHES.items() if v}
     tiled = {k: v for k, v in fullw2v.TILED_LAUNCHES.items() if v}
@@ -949,6 +971,199 @@ def phase_chaos(torch, args):
     return r
 
 
+# ---------------------------------------------------------------------------
+# phase 9: mixed-precision tables
+# ---------------------------------------------------------------------------
+
+MIXED_RUNS = (("hot=bf16", 1, "cuda_pipelined"),
+              ("hot=bf16", 8, "cuda_tiled"),
+              ("hot=bf16,cold=bf16,shards=1", 8, "cuda_tiled_fused"),
+              ("hot=bf16,cold=int8,shards=1,master=1", 8, "cuda_tiled_fused"))
+QUALITY_MIXED = "hot=bf16:frac=0.1,cold=int8,shards=1,master=1"
+
+
+def _same_bytes(torch, a, b) -> bool:
+    """Equal storage bytes of two tensors (any dtype, any device)."""
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    a, b = a.detach().cpu(), b.detach().cpu()
+    return a.dtype == b.dtype and torch.equal(a.view(view.get(a.dtype,
+                                                              a.dtype)),
+                                              b.view(view.get(b.dtype,
+                                                              b.dtype)))
+
+
+class CodecSpy:
+    """Wraps the storage codec (``quant.decode`` and the stochastic
+    encoders ``bf16_stochastic`` / ``int8_stochastic``) while a session
+    trains: CUDA events around each call give the codec's device time
+    (:meth:`ms`, read after a synchronize), and with ``check_cpu`` every
+    encode's bytes are held against the CPU run of the same function on
+    the same f32 input (the step's kernel output on the card) and key."""
+    NAMES = ("decode", "bf16_stochastic", "int8_stochastic")
+
+    def __init__(self, torch, check_cpu: bool = False):
+        from repro_torch.kernels import quant
+        self.torch, self.quant, self.check_cpu = torch, quant, check_cpu
+        self.spans, self.encodes, self.elements = [], 0, 0
+
+    def __enter__(self):
+        self.real = {n: getattr(self.quant, n) for n in self.NAMES}
+        for n, fn in self.real.items():
+            setattr(self.quant, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(self.quant, n, fn)
+
+    def _wrap(self, name, fn):
+        torch = self.torch
+
+        def run(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            self.spans.append((start, end))
+            if self.check_cpu and name != "decode":
+                x, key = a[0], a[1]
+                cpu = fn(x.cpu(), key)
+                got = out if isinstance(out, tuple) else (out,)
+                want = cpu if isinstance(cpu, tuple) else (cpu,)
+                if not all(_same_bytes(torch, g, w)
+                           for g, w in zip(got, want)):
+                    raise AssertionError(f"{name} on the card stored other "
+                                         f"bytes than on the CPU")
+                self.encodes += 1
+                self.elements += x.numel()
+            return out
+        return run
+
+    def ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.spans)
+
+
+def phase_codec(torch, np, args, rows: int, dim: int) -> dict:
+    """``encode_stochastic`` (bf16, int8) on a (rows, dim) f32 table with a
+    fixed key: the card's bytes equal the CPU's; encode and decode timed
+    on the card (CUDA events)."""
+    from repro_torch.kernels import quant
+
+    gen = torch.Generator().manual_seed(args.seed)
+    x = (torch.rand((rows, dim), generator=gen) - 0.5) / dim
+    xd = x.cuda()
+    key = quant.round_key(args.seed, 0, 0)
+    out = {}
+    for dtype in ("bfloat16", "int8"):
+        cpu = quant.encode_stochastic(x, dtype, key, quant.TAG_FULL_IN)
+        dev = quant.encode_stochastic(xd, dtype, key, quant.TAG_FULL_IN)
+        same = all(_same_bytes(torch, g, w) for g, w in zip(dev, cpu)
+                   if w is not None)
+        if not same:
+            raise AssertionError(f"encode_stochastic({dtype}) on the card "
+                                 f"differs from the CPU's bytes")
+        enc_ms = _time_ms(torch, lambda: quant.encode_stochastic(
+            xd, dtype, key, quant.TAG_FULL_IN), 5)
+        dec_ms = _time_ms(torch, lambda: quant.decode(dev[0], dev[1],
+                                                      dtype), 5)
+        out[dtype] = dict(encode_ms=enc_ms, decode_ms=dec_ms)
+        _line("mixed", codec=dtype, rows=rows, dim=dim, bitwise="card==cpu",
+              encode_ms=f"{enc_ms:.3f}", decode_ms=f"{dec_ms:.3f}")
+    return out
+
+
+def phase_mixed_run(torch, np, args, tables: str, tile: int, kernel: str,
+                    frac: float):
+    """One mixed-precision run at phase 4's shapes: the first step's
+    stored bytes against the CPU codec (a one-batch session), then the
+    3-batch run with the codec timed inside its steps."""
+    from repro_torch.core.trainer import TrainSession
+
+    kw = dict(tables=tables, hot_vocab_frac=frac)
+    expect = "cuda_tiled" if tile > 1 else "cuda_pipelined"
+    pipe, cfg, _ = make_pipeline(args, tile, **kw)
+    first = TrainSession(pipe, cfg, backend="auto", device="cuda")
+    with CodecSpy(torch, check_cpu=True) as check:
+        first.train(max_batches=1)
+    if not check.encodes:
+        raise AssertionError(f"{tables}: the step stored nothing")
+    del first
+    spy = CodecSpy(torch)
+    sess, n, step_s, inst, host = phase_trainer(
+        torch, np, args, tile, "auto", expect, around_train=spy, **kw)
+    if (sess.placement is not None) != (kernel == "cuda_tiled_fused"):
+        raise AssertionError(f"{tables}: placement {sess.placement}")
+    params = sess.state.params()
+    nbytes = sum(t.numel() * t.element_size() for t in params.values())
+    f32 = 4 * sum(t.numel() for k, t in params.items()
+                  if not k.startswith("scale"))
+    codec_ms = spy.ms() / sess.state.batches_seen
+    out = dict(tables=tables, T=tile, kernel=kernel, launches=n,
+               words_per_s=sess.words_per_sec, s_per_step=step_s,
+               codec_ms_per_step=codec_ms,
+               codec_share_of_step=codec_ms / (step_s * 1e3),
+               table_bytes=nbytes, f32_table_bytes=f32,
+               bytes_ratio=nbytes / f32, in_situ_encodes=check.encodes,
+               in_situ_elements=check.elements, instantiation=inst, **host)
+    _line("mixed", tables=tables, T=tile, kernel=kernel, launches=n,
+          words_per_s=f"{out['words_per_s']:.0f}",
+          s_per_step=f"{step_s:.4f}", codec_ms_per_step=f"{codec_ms:.3f}",
+          codec_share_of_step=f"{out['codec_share_of_step']:.4f}",
+          table_bytes=nbytes, f32_table_bytes=f32,
+          bytes_ratio=f"{out['bytes_ratio']:.4f}",
+          in_situ=f"{check.encodes} encodes of {check.elements} elements "
+                  f"card==cpu", instantiation=inst)
+    return sess, out
+
+
+def phase_mixed_quality(torch, np, args) -> dict:
+    """The reference's mixed-precision quality gate (bench_quality's
+    shape) on the card: ``QUALITY_MIXED`` (K1 under the f32 master copy)
+    against f32 (K2) on the same batches; the separation ratio must lie
+    in 1.00 ± 0.01."""
+    from repro_torch.configs.w2v import W2VConfig
+    from repro_torch.core.quality import evaluate
+    from repro_torch.core.trainer import TrainSession
+    from repro_torch.data.batching import BatchingPipeline
+    from repro_torch.data.corpus import synthetic_cluster_corpus
+    from repro_torch.kernels import fullw2v
+
+    corpus = synthetic_cluster_corpus(n_clusters=8, words_per_cluster=16,
+                                      n_sentences=400, mean_len=14, seed=0)
+    out = {}
+    for name, tables, kernel in (("f32", "", "cuda_pipelined"),
+                                 ("mixed", QUALITY_MIXED, "cuda")):
+        cfg = W2VConfig(dim=64, window=5, negatives=5, epochs=8,
+                        min_count=1, subsample_t=0.0,
+                        sentences_per_batch=128, max_sentence_len=48,
+                        tables=tables, seed=args.seed)
+        pipe = BatchingPipeline(corpus, cfg)
+        sess = TrainSession(pipe, cfg, backend="auto", device="cuda")
+        fullw2v.reset_launch_counts()
+        sess.train()
+        n = _launched(kernel, sess.state.batches_seen)
+        inv = np.zeros(pipe.vocab.size, dtype=int)
+        for w, i in pipe.vocab.ids.items():
+            inv[i] = corpus.clusters[w]
+        q = evaluate(sess.embeddings()[:pipe.vocab.size], inv, seed=1)
+        out[name] = dict(separation=q["separation"], launches=n,
+                         kernel=kernel, batches=sess.state.batches_seen)
+    ratio = out["mixed"]["separation"] / out["f32"]["separation"]
+    out["ratio"] = ratio
+    _line("mixed", gate="quality", tables=QUALITY_MIXED,
+          f32_separation=f"{out['f32']['separation']:.4f}",
+          mixed_separation=f"{out['mixed']['separation']:.4f}",
+          ratio=f"{ratio:.4f}", limit="1.00+-0.01",
+          f32_kernel=f"cuda_pipelined x{out['f32']['launches']}",
+          mixed_kernel=f"cuda x{out['mixed']['launches']}")
+    if abs(ratio - 1.0) > 0.01:
+        raise AssertionError(f"mixed/f32 separation ratio {ratio:.4f} "
+                             f"outside 1.00 +- 0.01")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1046,6 +1261,21 @@ def main(argv=None) -> int:
 
     # 8. supervised recovery through the reference's fault kinds
     phase_chaos(torch, args)
+
+    # 9. mixed-precision tables: the codec on the card, the main path's
+    # kernels under bf16 and int8 storage, a resume, the quality gate
+    phase_codec(torch, np, args, sess1.pipeline.table_rows, sess1.cfg.dim)
+    mixed = {}
+    for tables, tile, kernel in MIXED_RUNS:
+        sess_mx, mixed[tables, tile] = phase_mixed_run(
+            torch, np, args, tables, tile, kernel, frac)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mixed_") as tmp:
+        phase_resume(torch, np, args, sess_mx, tmp, "T=8 mixed int8 master",
+                     2)
+    quality = phase_mixed_quality(torch, np, args)
+    mixed_launches = {"cuda": {QUALITY_MIXED: quality["mixed"]["launches"]}}
+    for (tables, tile), m in mixed.items():
+        mixed_launches.setdefault(m["kernel"], {})[tables] = m["launches"]
     files = {"cuda": "src/repro_torch/kernels/csrc/seq.cuh",
              "cuda_pipelined": "src/repro_torch/kernels/csrc/seq.cuh",
              "cuda_tiled": "src/repro_torch/kernels/csrc/tiled.cuh",
@@ -1093,6 +1323,8 @@ def main(argv=None) -> int:
             row.update({k: timing[name][k] for k in (
                 "live_tiles", "strict_share", "mean_unique_rows",
                 "host_prefetched", "host_rejected")})
+        # launches under bf16/int8 storage (phase 9), by --tables spec
+        row["mixed_launches"] = mixed_launches[name]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@
 The reference draws its init with ``jax.random`` and the port with a
 ``torch.Generator``: the same seed gives different numbers. Handing the
 reference's ``TrainState.params()`` over as numpy arrays lets both packages
-train from identical tables, which is what parity runs need.
+train from identical tables, which is what parity runs need. Mixed-
+precision states cross with their storage bits: bf16 tables as bf16, int8
+cold tails with their f32 scales.
 """
 from __future__ import annotations
 
@@ -16,14 +18,28 @@ from repro_torch.core.trainer import TrainState
 
 _REPLICATED = ("w_in", "w_out")
 _SPLIT = ("hot_in", "hot_out", "cold_in", "cold_out")
+_SCALES = ("scale_in", "scale_out")
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A copy of one leaf on ``device`` in its storage dtype. A bf16 leaf
+    (numpy dtype name ``bfloat16``, from ``ml_dtypes``) crosses as its
+    16-bit pattern, without importing ``ml_dtypes``."""
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.tensor(bits, device=device).view(torch.bfloat16)
+    return torch.tensor(a, device=device)
 
 
 def params_from_reference(params: Mapping[str, np.ndarray],
                           device) -> TrainState:
     """A fresh :class:`TrainState` on ``device`` holding copies of the
-    reference's f32 tables (progress counters at zero): the replicated
-    tree ``{"w_in", "w_out"}`` or the vocab-sharded split tree
-    ``{"hot_in", "hot_out", "cold_in", "cold_out"}``."""
+    reference's tables, storage bits unchanged (progress counters at
+    zero): the replicated tree ``{"w_in", "w_out"}`` (float32 or
+    bfloat16) or the vocab-sharded split tree ``{"hot_in", "hot_out",
+    "cold_in", "cold_out"}`` (a float32 or bfloat16 head, a float32,
+    bfloat16 or int8 tail; an int8 tail adds ``{"scale_in",
+    "scale_out"}``, float32 per-row scales)."""
     names = _SPLIT if "hot_in" in params else _REPLICATED
     missing = set(names) - set(params)
     if missing:
@@ -32,17 +48,38 @@ def params_from_reference(params: Mapping[str, np.ndarray],
             f"TrainState.params(): {{{', '.join(_REPLICATED)}}} "
             f"(replicated) or {{{', '.join(_SPLIT)}}} (vocab-sharded)")
     arrays = [np.asarray(params[k]) for k in names]
-    if any(a.dtype != np.float32 for a in arrays):
-        raise ValueError(f"expected float32 tables, got "
-                         f"{[str(a.dtype) for a in arrays]}")
+    dts = [a.dtype.name for a in arrays]
+    if dts[0] not in ("float32", "bfloat16") or dts[1] != dts[0] or (
+            names == _SPLIT and (dts[2] not in ("float32", "bfloat16", "int8")
+                                 or dts[3] != dts[2])):
+        raise ValueError(
+            f"expected float32 or bfloat16 {names[0]}/{names[1]} and a "
+            f"float32, bfloat16 or int8 cold pair of one dtype each, got "
+            f"{dict(zip(names, dts))}")
     pairs = list(zip(arrays[0::2], arrays[1::2]))   # (in, out) per table
     if any(a.ndim != 2 or a.shape != b.shape for a, b in pairs) or \
             len({a.shape[1] for a in arrays}) != 1:
         raise ValueError(f"expected (rows, d) in/out pairs of one d, got "
                          f"{[a.shape for a in arrays]}")
-    put = [torch.tensor(a, dtype=torch.float32, device=device)
-           for a in arrays]
+    int8 = names == _SPLIT and dts[2] == "int8"
+    if int8 != any(k in params for k in _SCALES):
+        raise ValueError(
+            f"an int8 cold tail needs its {_SCALES} leaves and no other "
+            f"tail takes them; got a {dts[-1]} tail and "
+            f"{sorted(k for k in _SCALES if k in params)}")
+    put = [_tensor(a, device) for a in arrays]
     if names == _REPLICATED:
         return TrainState(w_in=put[0], w_out=put[1])
+    scales = [None, None]
+    if int8:
+        scales = [np.asarray(params[k]) for k in _SCALES]
+        if any(s.dtype != np.float32 or s.shape != (arrays[2].shape[0],)
+               for s in scales):
+            raise ValueError(
+                f"int8 scales must be float32 of shape "
+                f"({arrays[2].shape[0]},), got "
+                f"{[(s.dtype.name, s.shape) for s in scales]}")
+        scales = [_tensor(s, device) for s in scales]
     return TrainState(w_in=put[0], w_out=put[1], cold_in=put[2],
-                      cold_out=put[3])
+                      cold_out=put[3], scale_in=scales[0],
+                      scale_out=scales[1])

@@ -16,9 +16,12 @@ with ``device=None`` and no GPU it raises rather than quietly running the
 plain versions on the CPU. ``cfg.vocab_shard`` splits the tables into a
 replicated hot head and a cold tail on one shard (DESIGN.md §8), with the
 row exchange planned per batch by ``repro_torch.distributed
-.vocab_placement``. Data-parallel meshes (and with them more than one
-vocab shard) and mixed-precision tables arrive with later slices of the
-port and raise until then.
+.vocab_placement``. ``cfg.tables`` stores the tables below f32
+(DESIGN.md §11): a bf16 head, a bf16 or int8 cold tail with per-row
+scales; each step carries its batch's rounding key, so stochastic storage
+rounding replays bit for bit at any worker count and through a resume.
+Data-parallel meshes (and with them more than one vocab shard) arrive
+with later slices of the port and raise until then.
 
 The kernels update the tables in place (the reference reassigns them), so
 a checkpoint copies them to the host with a blocking ``.cpu()`` on the
@@ -38,7 +41,7 @@ import torch
 
 from repro_torch.configs.w2v import W2VConfig
 from repro_torch.data.batching import Batch, BatchingPipeline
-from repro_torch.kernels import ops, registry
+from repro_torch.kernels import ops, quant, registry
 from repro_torch.kernels import tables as tables_mod
 from repro_torch.kernels.registry import StepInputs
 from repro_torch.kernels.tables import Tables, TableSpec
@@ -48,13 +51,15 @@ log = logging.getLogger("repro_torch.trainer")
 
 @dataclasses.dataclass
 class TrainState:
-    """Training state: float32 tables (updated in place by every step) +
-    progress counters.
+    """Training state: tables (updated in place by every step) + progress
+    counters.
 
     Replicated sessions hold the full ``(V, d)`` tables in ``w_in`` /
     ``w_out``. Vocab-sharded sessions hold the replicated hot head there
     instead, plus the striped cold tail in ``cold_in`` / ``cold_out``
-    (``(cold_pad, d)``, DESIGN.md §8)."""
+    (``(cold_pad, d)``, DESIGN.md §8). Tables live in their storage
+    dtypes (``TableSpec``): an int8 cold tail carries its per-row f32
+    scales in ``scale_in`` / ``scale_out``."""
     w_in: torch.Tensor
     w_out: torch.Tensor
     words_seen: int = 0
@@ -63,13 +68,20 @@ class TrainState:
     epoch_batch: int = 0   # batches completed within the current epoch
     cold_in: Optional[torch.Tensor] = None    # vocab-sharded cold tail
     cold_out: Optional[torch.Tensor] = None
+    scale_in: Optional[torch.Tensor] = None   # int8 per-row scales (cold)
+    scale_out: Optional[torch.Tensor] = None
 
     def params(self) -> Dict[str, torch.Tensor]:
         """The table dict, named as the reference's ``TrainState.params``
-        (split names when vocab-sharded)."""
+        (split names when vocab-sharded; an int8 cold tail adds its scale
+        leaves)."""
         if self.cold_in is not None:
-            return {"hot_in": self.w_in, "hot_out": self.w_out,
-                    "cold_in": self.cold_in, "cold_out": self.cold_out}
+            out = {"hot_in": self.w_in, "hot_out": self.w_out,
+                   "cold_in": self.cold_in, "cold_out": self.cold_out}
+            if self.scale_in is not None:
+                out["scale_in"] = self.scale_in
+                out["scale_out"] = self.scale_out
+            return out
         return {"w_in": self.w_in, "w_out": self.w_out}
 
 
@@ -111,7 +123,8 @@ def resolve_device(device) -> torch.device:
 
 
 def init_state(vocab_size: int, cfg: W2VConfig, seed: int = 0,
-               device=None, placement=None) -> TrainState:
+               device=None, placement=None,
+               spec: Optional[TableSpec] = None) -> TrainState:
     """Mikolov init: w_in ~ U(-0.5/d, 0.5/d), w_out = 0, drawn from a CPU
     ``torch.Generator`` seeded with ``seed`` (the same tables on every
     device; different numbers from the reference's ``jax.random`` — use
@@ -124,20 +137,41 @@ def init_state(vocab_size: int, cfg: W2VConfig, seed: int = 0,
 
     With a ``placement`` (vocab sharding) the *same* full-table init is
     drawn and then split hot/cold, so a sharded session starts from
-    exactly the tables a replicated one would."""
+    exactly the tables a replicated one would. Sub-f32 storage dtypes in
+    ``spec`` encode the init round-to-nearest; ``w_out = 0`` is exact in
+    every storage dtype."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     d = cfg.dim
     w_in = (torch.rand((vocab_size, d), generator=gen,
                        dtype=torch.float32) - 0.5) / d
     w_out = torch.zeros((vocab_size, d), dtype=torch.float32)
+    return _encoded_state(w_in.numpy(), w_out.numpy(), device, placement,
+                          spec or TableSpec(vocab_shard=placement is not None))
+
+
+def _encoded_state(full_in: np.ndarray, full_out: np.ndarray, device,
+                   placement, spec: TableSpec) -> TrainState:
+    """A state holding the f32 full tables ``(V, d)`` split through
+    ``placement`` (when given) and encoded round-to-nearest into
+    ``spec``'s storage dtypes, as new tensors on ``device``: the seam that
+    init and cross-format restores share."""
+    def enc(a: np.ndarray, dtype: str):
+        payload, scale = quant.encode_nearest(torch.from_numpy(a), dtype)
+        return (payload.to(device, copy=True),
+                None if scale is None else scale.to(device))
+
     if placement is None:
-        return TrainState(w_in=w_in.to(device), w_out=w_out.to(device))
+        return TrainState(w_in=enc(full_in, spec.hot_dtype)[0],
+                          w_out=enc(full_out, spec.hot_dtype)[0])
     (hot_in, cold_in), (hot_out, cold_out) = (
-        placement.split(t.numpy()) for t in (w_in, w_out))
-    put = lambda a: torch.from_numpy(a).to(device)          # noqa: E731
-    return TrainState(w_in=put(hot_in), w_out=put(hot_out),
-                      cold_in=put(cold_in), cold_out=put(cold_out))
+        placement.split(t) for t in (full_in, full_out))
+    c_in, s_in = enc(cold_in, spec.cold_dtype)
+    c_out, s_out = enc(cold_out, spec.cold_dtype)
+    return TrainState(w_in=enc(hot_in, spec.hot_dtype)[0],
+                      w_out=enc(hot_out, spec.hot_dtype)[0],
+                      cold_in=c_in, cold_out=c_out, scale_in=s_in,
+                      scale_out=s_out)
 
 
 def _later_slice(what: str) -> NotImplementedError:
@@ -265,8 +299,9 @@ class TrainSession:
             spec = dataclasses.replace(spec, exchange=exchange)
         if spec.shards > 1:
             raise _later_slice(f"more than one vocab shard (shards="
-                               f"{spec.shards}; the data-parallel slice, "
-                               f"ROADMAP item 7)")
+                               f"{spec.shards}; ROADMAP item 8, on the "
+                               f"process group of the data-parallel "
+                               f"slice, item 7)")
         self.spec = spec
         self.exchange = spec.exchange
         # the requested name is kept for dispatch so batches without a plan
@@ -294,7 +329,7 @@ class TrainSession:
             # (Batch.exchange); _make_step plans inline for batches without
             pipeline.placement = self.placement
         self.state = init_state(table_rows, cfg, cfg.seed, self.device,
-                                placement=self.placement)
+                                placement=self.placement, spec=self.spec)
         self._tables().check_runnable()
         self.total_words = max(1, pipeline.epoch_words * cfg.epochs)
         self.words_per_sec = 0.0
@@ -325,21 +360,31 @@ class TrainSession:
     def _tables(self) -> Tables:
         st = self.state
         return Tables(w_in=st.w_in, w_out=st.w_out, cold_in=st.cold_in,
-                      cold_out=st.cold_out, spec=self.spec,
+                      cold_out=st.cold_out, scale_in=st.scale_in,
+                      scale_out=st.scale_out, spec=self.spec,
                       placement=self.placement)
 
     def _make_step(self, batch: Batch, lr, put=None) -> StepInputs:
         """Device StepInputs for a batch: the vocab-sharded exchange plan
         when the session shards the vocabulary (``batch.exchange`` from a
         placement-aware pipeline, else planned here), the plain lift
-        otherwise. ``put`` replaces the blocking copy of each array."""
+        otherwise. ``put`` replaces the blocking copy of each array. With
+        sub-f32 storage the step also carries the batch's rounding key, a
+        pure function of (seed, epoch, batch index) computed on the
+        host."""
         if self.placement is None:
-            return batch.step_inputs(lr, self.device, put=put)
-        ex = getattr(batch, "exchange", None)
-        if ex is None or ex.placement != self.placement:
-            from repro_torch.distributed.vocab_placement import plan_exchange
-            ex = plan_exchange(batch, self.placement)
-        return ex.step_inputs(lr, self.device, put=put)
+            step = batch.step_inputs(lr, self.device, put=put)
+        else:
+            ex = getattr(batch, "exchange", None)
+            if ex is None or ex.placement != self.placement:
+                from repro_torch.distributed.vocab_placement import \
+                    plan_exchange
+                ex = plan_exchange(batch, self.placement)
+            step = ex.step_inputs(lr, self.device, put=put)
+        if self.spec.is_mixed:
+            step.round_key = quant.round_key(self.cfg.seed, batch.epoch,
+                                             batch.index)
+        return step
 
     def synchronize(self) -> None:
         """Wait for the session's device work to finish (no-op on CPU)."""
@@ -528,30 +573,26 @@ class TrainSession:
             extra=extra)
 
     def _restore_tables(self, step: int) -> Dict:
-        """Restore f32 embedding tables across table *layouts*: split-table
-        (vocab-sharded) vs replicated. Same-layout restores (same leaf set
-        and shapes, and for split tables the same placement, compared
-        exactly) load the tables as stored; cross-layout restores merge
-        the writing run's split through its recorded placement and split
-        the full tables through this session's. Every restored table is a
-        new tensor on the session's device. A mixed-precision checkpoint
-        raises: restoring one arrives with the mixed-precision slice."""
+        """Restore embedding tables across table *formats*: split-table
+        (vocab-sharded) vs replicated, and any storage-dtype mix — a
+        mixed-precision checkpoint restores into an f32 session and back.
+        Same-format restores (same leaf set, shapes and dtypes, and for
+        split tables the same placement, compared exactly) load the tables
+        as stored, keeping their exact bytes. Cross-format restores decode
+        the writing run's storage to the full f32 tables (through its
+        placement and TableSpec, both recorded in the checkpoint) and
+        re-encode them round-to-nearest through this session's. Every
+        restored table is a new tensor on the session's device."""
         from repro_torch.distributed.vocab_placement import VocabPlacement
         from repro_torch.train import checkpoint as ckpt
         leaves, extra = ckpt.peek(self.ckpt_dir, step=step)
-        src_spec = TableSpec.from_extra(extra.get("tables", {}))
-        if src_spec.is_mixed or any(m["dtype"] != "float32"
-                                    for m in leaves.values()):
-            raise _later_slice(
-                f"restoring a mixed-precision checkpoint (step {step}: "
-                f"hot={src_spec.hot_dtype} cold={src_spec.cold_dtype}; "
-                f"ROADMAP queue 1 item 6)")
         split_ckpt = "hot_in" in leaves
-        like_now = {k: ckpt.ArraySpec(tuple(v.shape), "float32")
+        like_now = {k: ckpt.ArraySpec(tuple(v.shape),
+                                      str(v.dtype).removeprefix("torch."))
                     for k, v in self.state.params().items()}
         same_format = set(leaves) == set(like_now) and all(
             tuple(leaves[k]["shape"]) == like_now[k].shape
-            for k in like_now)
+            and leaves[k]["dtype"] == like_now[k].dtype for k in like_now)
         if same_format and split_ckpt:
             # shapes alone can coincide across shard counts (equal
             # cold_pad, different stripe order) — the placements must
@@ -560,43 +601,54 @@ class TrainSession:
             same_format = (self.placement is not None and meta is not None
                            and VocabPlacement.from_extra(meta)
                            == self.placement)
+        st = self.state
         if same_format:
             tree, extra = ckpt.restore(self.ckpt_dir, like_now, step=step,
                                        device=self.device)
-        else:
-            like_ckpt = {k: ckpt.ArraySpec(tuple(m["shape"]), "float32")
-                         for k, m in leaves.items()}
-            host, extra = ckpt.restore(self.ckpt_dir, like_ckpt, step=step)
-            if split_ckpt:
-                src = VocabPlacement.from_extra(extra["vocab_shard"])
-                full_in = src.merge(host["hot_in"], host["cold_in"])
-                full_out = src.merge(host["hot_out"], host["cold_out"])
-            else:
-                full_in, full_out = host["w_in"], host["w_out"]
-            v_expect = (self.placement.vocab_size
-                        if self.placement is not None
-                        else int(self.state.w_in.shape[0]))
-            want = (v_expect, self.cfg.dim)
-            if full_in.shape != want:
-                raise ValueError(
-                    f"checkpoint tables are {full_in.shape}, session "
-                    f"expects {want} (vocabulary or dim mismatch — wrong "
-                    f"ckpt_dir?)")
             if self.placement is not None:
-                (hot_in, cold_in), (hot_out, cold_out) = (
-                    self.placement.split(t) for t in (full_in, full_out))
-                host = {"hot_in": hot_in, "hot_out": hot_out,
-                        "cold_in": cold_in, "cold_out": cold_out}
+                st.w_in, st.w_out = tree["hot_in"], tree["hot_out"]
+                st.cold_in, st.cold_out = tree["cold_in"], tree["cold_out"]
+                st.scale_in = tree.get("scale_in")
+                st.scale_out = tree.get("scale_out")
             else:
-                host = {"w_in": full_in, "w_out": full_out}
-            tree = {k: torch.tensor(v, device=self.device)
-                    for k, v in host.items()}
-        st = self.state
-        if self.placement is not None:
-            st.w_in, st.w_out = tree["hot_in"], tree["hot_out"]
-            st.cold_in, st.cold_out = tree["cold_in"], tree["cold_out"]
+                st.w_in, st.w_out = tree["w_in"], tree["w_out"]
+            return extra
+        like_ckpt = {k: ckpt.ArraySpec(tuple(m["shape"]), m["dtype"])
+                     for k, m in leaves.items()}
+        host, extra = ckpt.restore(self.ckpt_dir, like_ckpt, step=step)
+        src_spec = TableSpec.from_extra(extra.get("tables", {}))
+
+        def dec(name: str, dtype: str, sname: Optional[str] = None
+                ) -> np.ndarray:
+            scale = None if sname is None else torch.as_tensor(host[sname])
+            return quant.decode(torch.as_tensor(host[name]), scale,
+                                dtype).numpy()
+
+        if split_ckpt:
+            src = VocabPlacement.from_extra(extra["vocab_shard"])
+            int8 = src_spec.cold_dtype == "int8"
+            full_in, full_out = (src.merge(
+                dec(f"hot_{side}", src_spec.hot_dtype),
+                dec(f"cold_{side}", src_spec.cold_dtype,
+                    f"scale_{side}" if int8 else None))
+                for side in ("in", "out"))
         else:
-            st.w_in, st.w_out = tree["w_in"], tree["w_out"]
+            full_in, full_out = (dec(k, src_spec.hot_dtype)
+                                 for k in ("w_in", "w_out"))
+        # restoring through like_ckpt skipped restore()'s shape check
+        # against this session — validate before training reads rows
+        v_expect = (self.placement.vocab_size if self.placement is not None
+                    else int(st.w_in.shape[0]))
+        want = (v_expect, self.cfg.dim)
+        if full_in.shape != want:
+            raise ValueError(
+                f"checkpoint tables are {full_in.shape}, session expects "
+                f"{want} (vocabulary or dim mismatch — wrong ckpt_dir?)")
+        new = _encoded_state(full_in, full_out, self.device, self.placement,
+                             self.spec)
+        for name in ("w_in", "w_out", "cold_in", "cold_out", "scale_in",
+                     "scale_out"):
+            setattr(st, name, getattr(new, name))
         return extra
 
     def restore_latest(self) -> Optional[int]:
@@ -619,7 +671,7 @@ class TrainSession:
                     getattr(self.pipeline, "table_rows",
                             self.pipeline.vocab.size),
                     self.cfg, self.cfg.seed, self.device,
-                    placement=self.placement)
+                    placement=self.placement, spec=self.spec)
                 self._resume_skip = 0
                 self.resumed_step = None
                 return None
@@ -646,24 +698,31 @@ class TrainSession:
 
     # -- inference helpers ----------------------------------------------------
     def embeddings(self) -> np.ndarray:
-        """The input embedding table ``(V, d)`` as f32 numpy; vocab-sharded
-        sessions reassemble it from the hot head and the cold tail (a full
-        ``(V, d)`` copy on the host: fine for examples and tests, wrong for
+        """The input embedding table ``(V, d)`` as f32 numpy (quantized
+        storage decodes here; numpy has no bf16); vocab-sharded sessions
+        reassemble it from the hot head and the cold tail (a full ``(V,
+        d)`` copy on the host: fine for examples and tests, wrong for
         serving, which takes :meth:`embeddings_sharded`)."""
-        hot = self.state.w_in.detach().cpu().numpy().astype(np.float32)
-        if self.placement is None:
+        hot, cold, placement = self.embeddings_sharded()
+        hot = hot.detach().cpu().numpy()
+        if placement is None:
             return hot
-        return self.placement.merge(hot, self.state.cold_in.detach().cpu()
-                                    .numpy())
+        return placement.merge(hot, cold.detach().cpu().numpy())
 
     def embeddings_sharded(self):
-        """Shard-aware view of the input table — no ``(V, d)`` gather.
+        """Shard-aware f32 view of the input table — no ``(V, d)`` gather.
 
         Returns ``(hot, cold, placement)``: for a vocab-sharded session the
         hot head ``(hot, d)``, the shard-major cold table ``(cold_pad, d)``
-        (device tensors, as trained) and the ``VocabPlacement`` describing
-        the layout; for a replicated session ``(w_in, None, None)``."""
-        return self.state.w_in, self.state.cold_in, self.placement
+        (device tensors, decoded from their storage dtypes; an f32 table
+        is returned as trained) and the ``VocabPlacement`` describing the
+        layout; for a replicated session ``(w_in, None, None)``."""
+        st = self.state
+        hot = quant.decode(st.w_in, None, self.spec.hot_dtype)
+        if self.placement is None:
+            return hot, None, None
+        return (hot, quant.decode(st.cold_in, st.scale_in,
+                                  self.spec.cold_dtype), self.placement)
 
     def nearest(self, word_id: int, k: int = 5) -> np.ndarray:
         e = self.embeddings()

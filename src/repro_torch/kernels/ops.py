@@ -14,24 +14,36 @@ the one dispatch function :func:`step`. Registered backends:
   ``update_fused`` is the split-table kernel K4
   (``fullw2v_cuda_tiled_fused``), which a vocab-sharded step runs.
 
-:func:`step` runs the single-replica f32 step and the vocab-sharded f32
-step on one shard (DESIGN.md §8: replicated hot head, cold tail, row
-exchange planned on the host by ``repro_torch.distributed
-.vocab_placement``). Data parallelism, more than one shard and
-mixed-precision storage raise until their slices land.
+:func:`step` runs the single-replica step and the vocab-sharded step on
+one shard (DESIGN.md §8: replicated hot head, cold tail, row exchange
+planned on the host by ``repro_torch.distributed.vocab_placement``).
+
+Mixed-precision storage (DESIGN.md §11): tables stored in ``bfloat16`` or
+``int8`` decode to f32 working tensors, the unchanged f32 backend updates
+those in place, and the results store back with keyed stochastic rounding
+(``kernels.quant``; the key rides in ``StepInputs.round_key``). In the
+exact exchange the cold rows travel in storage precision and the
+write-back travels round-to-nearest quantized, as in the reference.
+Backends that cannot take a storage dtype (the CUDA kernels and int8) run
+it under the f32 master copy (``TableSpec.master_copy``): decode every
+table, the f32 step, re-encode every row. Data parallelism and more than
+one shard raise until their slices land.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.w2v import W2VConfig, resolve_gemm_windows
+from repro_torch.kernels import quant
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import registry
 from repro_torch.kernels.fullw2v import (fullw2v_cuda, fullw2v_cuda_tiled,
                                          fullw2v_cuda_tiled_fused)
 from repro_torch.kernels.registry import (KernelBackend, KernelStatic,
                                           StepInputs, register)
-from repro_torch.kernels.tables import Tables
+from repro_torch.kernels.tables import Tables, TableSpec
 
 
 # ---------------------------------------------------------------------------
@@ -143,15 +155,23 @@ def step(tables: Tables, step: StepInputs, cfg: W2VConfig,
     ``step.has_plan`` selects the window-tiled kernel family in both cases
     (bit-identical to the sequential one at T=1). The backend resolves
     against the tables' device: the CUDA kernels on the GPU, the plain
-    versions on the CPU.
+    versions on the CPU. Sub-f32 storage in ``tables.spec`` needs
+    ``step.round_key`` and a backend that takes the storage dtypes, unless
+    ``spec.master_copy`` asks for the f32 master copy.
     """
     tables.check_runnable()
     if mesh is not None:
         raise NotImplementedError(
             "data-parallel (mesh) steps arrive with a later slice of the "
             "torch port")
+    spec = tables.spec
+    if spec.is_mixed and step.round_key is None:
+        raise ValueError(
+            "TableSpec stores a table below f32 but StepInputs.round_key "
+            "is None; attach quant.round_key(cfg.seed, epoch, batch_index) "
+            "so stochastic rounding stays bit-deterministic")
     platform = tables.w_in.device.type
-    dtypes = () if tables.spec.master_copy else tables.spec.dtypes
+    dtypes = () if spec.master_copy else spec.dtypes
     static = static_for(cfg, step.tile)
     if tables.placement is not None:
         if not step.has_vocab_shard:
@@ -162,8 +182,7 @@ def step(tables: Tables, step: StepInputs, cfg: W2VConfig,
         be = registry.resolve(backend, tiled=step.has_plan, vocab_shard=True,
                               dtypes=dtypes, platform=platform)
         _VocabShardedRun(be.name, static, tables.placement,
-                         exchange=tables.spec.exchange)(
-            tables.w_in, tables.w_out, tables.cold_in, tables.cold_out, step)
+                         exchange=spec.exchange, spec=spec)(tables, step)
         return tables
     if step.has_vocab_shard:
         raise ValueError(
@@ -173,7 +192,18 @@ def step(tables: Tables, step: StepInputs, cfg: W2VConfig,
             "without plan_exchange.")
     be = registry.resolve(backend, tiled=step.has_plan, dtypes=dtypes,
                           platform=platform)
-    be.update(tables.w_in, tables.w_out, step, static)
+    dt = spec.hot_dtype
+    if dt == "float32":
+        be.update(tables.w_in, tables.w_out, step, static)
+        return tables
+    # decode → the unchanged f32 update → keyed stochastic re-encode;
+    # values exact in the storage dtype round-trip, so untouched rows stay
+    w_in = quant.decode(tables.w_in, None, dt)
+    w_out = quant.decode(tables.w_out, None, dt)
+    be.update(w_in, w_out, step, static)
+    for store, new, tag in ((tables.w_in, w_in, quant.TAG_FULL_IN),
+                            (tables.w_out, w_out, quant.TAG_FULL_OUT)):
+        store.copy_(quant.encode_stochastic(new, dt, step.round_key, tag)[0])
     return tables
 
 
@@ -222,38 +252,53 @@ def pmean(x: torch.Tensor, n: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class _VocabShardedRun:
-    """The per-shard f32 update of vocab-sharded tables: the port of the
-    reference's ``_vocab_sharded_run`` (``compute``, ``hogwild_mean``,
-    ``run_dense_f32``, ``run_exact_f32``), in place.
+    """The per-shard update of vocab-sharded tables: the port of the
+    reference's ``_vocab_sharded_run`` (``compute``, ``hogwild_mean``, the
+    f32 paths ``run_dense_f32``/``run_exact_f32``, and for sub-f32
+    storage ``run_dense_mixed``/``run_exact_mixed``/``run_master`` with
+    ``requant_hot``/``requant_cold``), in place.
 
-    ``run(hot_in, hot_out, cold_in, cold_out, step)`` takes the replicated
-    ``(hot, d)`` head tables, this shard's ``(cold_per_shard, d)`` block
-    of the striped cold tail and a ``StepInputs`` built by
+    ``run(tables, step)`` takes the replicated ``(hot, d)`` head tables,
+    this shard's ``(cold_per_shard, d)`` block of the striped cold tail
+    (and its int8 scales) and a ``StepInputs`` built by
     ``plan_exchange``. One step does, on the device:
 
-    1. **Gather** the cold rows the batch requests into a compact ``(R, d)``
-       block in request order. ``exchange="exact"``: route the per-owner
-       request buckets with ``all_to_all``, serve the owned rows, send them
-       back and land each at its host-planned position. ``exchange="dense"``:
-       ``all_gather`` every shard's request list and ``psum_scatter`` the
-       served rows (the reference's parity path).
+    1. **Gather** the cold rows the batch requests into a compact f32
+       ``(R, d)`` block in request order. ``exchange="exact"``: route the
+       per-owner request buckets with ``all_to_all``, serve the owned rows
+       in storage precision (int8 payload and scale, bf16 or f32), send
+       them back, decode, and land each at its host-planned position.
+       ``exchange="dense"``: ``all_gather`` every shard's request list and
+       ``psum_scatter`` the served rows, decoded (the reference's parity
+       path).
     2. **Compute**: a backend declaring ``update_fused`` (``cuda_tiled``:
        K4) gets the hot head and the gathered block as separate buffers;
-       the rest run on ``concat(hot, got)``.
-    3. **Write back**: ``pmean`` the hot head; route the updated request
-       rows to their owners, scatter-add them and average each touched
-       row over all ``n`` replicas (``hogwild_mean``); untouched rows keep
-       their values.
+       the rest run on ``concat(hot, got)``. A bf16 head computes on an f32
+       copy.
+    3. **Write back**: ``pmean`` the hot head (a bf16 head then stores with
+       keyed stochastic rounding); route the updated request rows to their
+       owners (on the exact path of a sub-f32 tail quantized
+       round-to-nearest for the transport), scatter-add them and average
+       each touched row over all ``n`` replicas (``hogwild_mean``); a
+       sub-f32 tail re-encodes the touched rows with keyed stochastic
+       rounding (the key folded with the tag and then this shard's index)
+       and keeps the untouched rows' exact storage bytes.
+
+    A backend that cannot take the storage dtypes runs the f32 path
+    between a full decode and a full stochastic re-encode of every row
+    (the master copy, ``TableSpec.master_copy``).
 
     Gathers and scatter-adds are torch index ops on the tables' device
     (``index_select``, ``index_copy_``, ``index_add_``); a scratch row past
     the end of each target takes the padding slots the reference drops.
     The route (``route``), the gather (``gather``) and the write-back
-    (``write_back``) are separate methods so a caller can time them.
+    (``write_back``, or ``merge`` for stored tails) are separate methods so
+    a caller can time them.
     """
 
     def __init__(self, backend: str, static: KernelStatic, placement,
-                 exchange: str = "exact"):
+                 exchange: str = "exact",
+                 spec: TableSpec = TableSpec(vocab_shard=True)):
         be = registry.get(backend)
         if not be.supports_vocab_shard:
             raise ValueError(
@@ -268,9 +313,21 @@ class _VocabShardedRun:
         self.cps = placement.cold_per_shard
         self.n = placement.n_shards
         self.me = 0      # this process's shard (one process per shard)
+        self.hot_dt, self.cold_dt = spec.hot_dtype, spec.cold_dtype
+        self.mixed = spec.is_mixed
+        self.native = all(d in be.supports_dtypes for d in spec.dtypes)
 
-    def __call__(self, hot_in, hot_out, cold_in, cold_out,
-                 step: StepInputs) -> None:
+    def __call__(self, tables: Tables, step: StepInputs) -> None:
+        t = tables
+        if not self.mixed:
+            self.run_f32(t.w_in, t.w_out, t.cold_in, t.cold_out, step)
+        elif not self.native:
+            self.run_master(t, step)
+        else:
+            self.run_mixed(t, step)
+
+    def run_f32(self, hot_in, hot_out, cold_in, cold_out, step) -> None:
+        """The f32 step on f32 tables, in place."""
         route = self.route(step)
         got_in = self.gather(route, cold_in)
         got_out = self.gather(route, cold_out)
@@ -279,6 +336,43 @@ class _VocabShardedRun:
         hot_out.copy_(pmean(hot_out, self.n))
         self.write_back(route, cold_in, got_in)
         self.write_back(route, cold_out, got_out)
+
+    def run_master(self, t: Tables, step) -> None:
+        """The f32 master copy: decode every table, the f32 step, then
+        re-encode every row (correct with any backend, but cold rows
+        re-encode every step and the transport stays f32)."""
+        dec = [quant.decode(t.w_in, None, self.hot_dt),
+               quant.decode(t.w_out, None, self.hot_dt),
+               quant.decode(t.cold_in, t.scale_in, self.cold_dt),
+               quant.decode(t.cold_out, t.scale_out, self.cold_dt)]
+        self.run_f32(*dec, step)
+        self.store_hot(t, dec[0], dec[1], step.round_key)
+        every = torch.ones(self.cps, dtype=torch.bool, device=t.w_in.device)
+        self.store_cold(t.cold_in, t.scale_in, dec[2], every, step.round_key,
+                        quant.TAG_COLD_IN)
+        self.store_cold(t.cold_out, t.scale_out, dec[3], every,
+                        step.round_key, quant.TAG_COLD_OUT)
+
+    def run_mixed(self, t: Tables, step) -> None:
+        """The native mixed step: the tail gathers in storage precision,
+        the head computes on an f32 copy, touched rows re-encode."""
+        route = self.route(step)
+        got_in = self.gather(route, t.cold_in, t.scale_in)
+        got_out = self.gather(route, t.cold_out, t.scale_out)
+        hot_in = quant.decode(t.w_in, None, self.hot_dt)
+        hot_out = quant.decode(t.w_out, None, self.hot_dt)
+        self.compute(hot_in, hot_out, got_in, got_out, step)
+        hot_in.copy_(pmean(hot_in, self.n))
+        hot_out.copy_(pmean(hot_out, self.n))
+        self.store_hot(t, hot_in, hot_out, step.round_key)
+        touched = route["kcnt"] > 0
+        quantize = self.exchange == "exact"
+        for cold, scale, new_rows, tag in (
+                (t.cold_in, t.scale_in, got_in, quant.TAG_COLD_IN),
+                (t.cold_out, t.scale_out, got_out, quant.TAG_COLD_OUT)):
+            merged = self.merge(route, quant.decode(cold, scale, self.cold_dt),
+                                new_rows, quantize=quantize)
+            self.store_cold(cold, scale, merged, touched, step.round_key, tag)
 
     # -- compute ------------------------------------------------------------
     def compute(self, hot_in, hot_out, got_in, got_out, step) -> None:
@@ -330,42 +424,82 @@ class _VocabShardedRun:
         r["kcnt"] = kcnt[:cps]
         return r
 
-    def gather(self, route: dict, cold: torch.Tensor) -> torch.Tensor:
-        """This shard's ``(R, d)`` gathered block, in request order."""
+    def gather(self, route: dict, cold: torch.Tensor,
+               scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """This shard's f32 ``(R, d)`` gathered block, in request order.
+        ``cold`` is stored in the spec's cold dtype (``scale``: its int8
+        scales); on the exact path the rows travel in that precision and
+        decode on arrival."""
         d = cold.shape[-1]
         serve, lrow = route["serve"], route["lrow"]
-        rows = cold.index_select(0, lrow.reshape(-1).long())
-        served = torch.where(serve.reshape(-1, 1), rows, 0.0).view(
-            *serve.shape, d)
+        idx = lrow.reshape(-1).long()
+        keep = serve.reshape(-1, 1)
+        rows = cold.index_select(0, idx)
+        rscale = None if scale is None else scale.index_select(0, idx)
         if self.exchange == "dense":
+            rows = quant.decode(rows, rscale, self.cold_dt)
+            served = torch.where(keep, rows, 0.0).view(*serve.shape, d)
             return psum_scatter(served, self.n)[0]
-        vals = all_to_all(served, self.n)
+        zero = 0 if rows.dtype == torch.int8 else 0.0
+        sent = torch.where(keep, rows, zero).view(*serve.shape, d)
+        vals = all_to_all(sent, self.n)
+        if rscale is not None:
+            sent_s = torch.where(serve.reshape(-1), rscale, 0.0)
+            vals = quant.int8_decode(vals, all_to_all(sent_s.view(
+                serve.shape), self.n))
+        else:
+            vals = vals.to(torch.float32)
         # vals[o, c] is the value of req[o, c]; land it at its first-seen
         # position in the gathered block (pads land in the scratch row R)
         width = route["width"]
-        got = cold.new_zeros((width + 1, d))
+        got = vals.new_zeros((width + 1, d))
         got.index_copy_(0, route["pos"].reshape(-1).long(),
                         vals.reshape(-1, d))
         return got[:width]
 
+    def contributions(self, route: dict, new_rows: torch.Tensor,
+                      quantize: bool = False) -> torch.Tensor:
+        """The updated request rows as their owners receive them, one row
+        per slot of ``route["tgt"]``. ``quantize``: the exact path's
+        transport of a sub-f32 tail, round-to-nearest (an int8 row with
+        its own scale of the values sent, or bf16)."""
+        n, d = self.n, new_rows.shape[-1]
+        if self.exchange == "dense":
+            upd_all = all_gather(new_rows, n)                     # (n, R, d)
+            return torch.where(route["serve"][..., None], upd_all,
+                               0.0).reshape(-1, d)
+        reqv = route["reqv"]
+        upd = new_rows.index_select(0, route["pos_c"].reshape(-1).long())
+        upd = torch.where(reqv.reshape(-1, 1), upd, 0.0)
+        # back[s] holds shard s's updated replicas of rows I own, in the
+        # same slots as got_req[s]
+        if quantize and self.cold_dt == "int8":
+            ts = quant.int8_scale(upd)
+            tq, _ = quant.int8_nearest(upd, ts)
+            back = quant.int8_decode(all_to_all(tq.view(*reqv.shape, d), n),
+                                     all_to_all(ts.view(reqv.shape), n))
+        elif quantize and self.cold_dt == "bfloat16":
+            back = all_to_all(quant.bf16_nearest(upd).view(*reqv.shape, d),
+                              n).to(torch.float32)
+        else:
+            back = all_to_all(upd.view(*reqv.shape, d), n)
+        return back.reshape(-1, d)
+
+    def merge(self, route: dict, cold: torch.Tensor, new_rows: torch.Tensor,
+              quantize: bool = False) -> torch.Tensor:
+        """The owner-side Hogwild mean of the f32 tail ``cold`` and the
+        updated request rows (a new tensor)."""
+        d = cold.shape[-1]
+        acc = cold.new_zeros((self.cps + 1, d))
+        acc.index_add_(0, route["tgt"],
+                       self.contributions(route, new_rows, quantize))
+        return self.hogwild_mean(cold, acc[:self.cps], route["kcnt"])
+
     def write_back(self, route: dict, cold: torch.Tensor,
                    new_rows: torch.Tensor) -> None:
         """Route the updated request rows to their owners and merge them
-        into ``cold`` in place (owner-side Hogwild mean)."""
-        n, d = self.n, cold.shape[-1]
-        if self.exchange == "dense":
-            upd_all = all_gather(new_rows, n)                     # (n, R, d)
-            contrib = torch.where(route["serve"][..., None], upd_all, 0.0)
-        else:
-            reqv = route["reqv"]
-            upd = new_rows.index_select(0, route["pos_c"].reshape(-1).long())
-            upd = torch.where(reqv.reshape(-1, 1), upd, 0.0)
-            # back[s] holds shard s's updated replicas of rows I own, in
-            # the same slots as got_req[s]
-            contrib = all_to_all(upd.view(*reqv.shape, d), n)
-        acc = cold.new_zeros((self.cps + 1, d))
-        acc.index_add_(0, route["tgt"], contrib.reshape(-1, d))
-        cold.copy_(self.hogwild_mean(cold, acc[:self.cps], route["kcnt"]))
+        into the f32 tail ``cold`` in place."""
+        cold.copy_(self.merge(route, cold, new_rows))
 
     def hogwild_mean(self, cold, acc, kcnt) -> torch.Tensor:
         """Owner-side merge: sum of the k updated replicas of each touched
@@ -374,3 +508,29 @@ class _VocabShardedRun:
         return torch.where(touched,
                            (acc + (self.n - kcnt)[:, None] * cold) / self.n,
                            cold)
+
+    # -- storage (sub-f32 tables) -------------------------------------------
+    def store_hot(self, t: Tables, hot_in, hot_out, key) -> None:
+        """The f32 head back into its storage (``requant_hot``)."""
+        for store, new, tag in ((t.w_in, hot_in, quant.TAG_HOT_IN),
+                                (t.w_out, hot_out, quant.TAG_HOT_OUT)):
+            if self.hot_dt == "bfloat16":
+                store.copy_(quant.bf16_stochastic(
+                    new, quant.fold_in(key, tag)))
+            elif new is not store:
+                store.copy_(new)
+
+    def store_cold(self, cold, scale, merged, touched, key, tag) -> None:
+        """The merged f32 tail back into its storage (``requant_cold``):
+        touched rows re-encode with the key folded with ``tag`` and then
+        this shard's index, untouched rows keep their exact bytes."""
+        k = quant.fold_in(quant.fold_in(key, tag), self.me)
+        if self.cold_dt == "int8":
+            q, s = quant.int8_stochastic(merged, k)
+            cold.copy_(torch.where(touched[:, None], q, cold))
+            scale.copy_(torch.where(touched, s, scale))
+        elif self.cold_dt == "bfloat16":
+            cold.copy_(torch.where(touched[:, None],
+                                   quant.bf16_stochastic(merged, k), cold))
+        elif merged is not cold:
+            cold.copy_(merged)

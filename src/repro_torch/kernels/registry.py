@@ -21,9 +21,12 @@ port backend       reference backend   runs
 
 The descriptors declare the reference's capabilities (vocab sharding,
 storage dtypes, frontends) so that resolution accepts and rejects the same
-combinations; the paths behind the ones the port does not run yet (data
-parallelism, more than one vocab shard, mixed precision, frontends) raise
-in ``kernels.ops.step``.
+combinations. The plain versions take every storage dtype; the CUDA
+kernels take ``float32`` and ``bfloat16``, as the reference's Pallas
+kernels do, so an int8 cold tail on the GPU runs under the f32 master
+copy (``master=1``). The paths behind the capabilities the port does not
+run yet (data parallelism, more than one vocab shard, frontends) raise in
+``kernels.ops.step``.
 
 The implementations register themselves from ``repro_torch.kernels.ops``
 at import time; every registry query triggers that import lazily.
@@ -34,6 +37,7 @@ import dataclasses
 import warnings
 from typing import Callable, Dict, List, Optional, Tuple, TYPE_CHECKING
 
+import numpy as np
 import torch
 
 if TYPE_CHECKING:  # pragma: no cover - typing only, avoids import cycles
@@ -53,7 +57,11 @@ class StepInputs:
     exchange plan (``repro_torch.distributed.vocab_placement
     .plan_exchange``); token, negative and plan ids are then working-table
     ids. ``lr`` is a 0-d float32 tensor on the CPU: kernels read it on the
-    host at launch, so it never costs a device sync."""
+    host at launch, so it never costs a device sync. ``round_key`` is the
+    batch's stochastic-rounding key for sub-f32 storage
+    (``kernels.quant.round_key``, a pure function of ``(seed, epoch,
+    batch_index)``), a host ``uint32[2]`` array: keying a step costs no
+    device sync either."""
     tokens: torch.Tensor                          # (S, L) int32
     negs: torch.Tensor                            # (S, L, N) int32
     lengths: torch.Tensor                         # (S,) int32
@@ -65,6 +73,7 @@ class StepInputs:
     cold_ids: Optional[torch.Tensor] = None       # (n_shards, R) int32, -1 pad
     bucket_ids: Optional[torch.Tensor] = None     # (n, n, C) int32, -1 pad
     bucket_pos: Optional[torch.Tensor] = None     # (n, n, C) int32, R pad
+    round_key: Optional[np.ndarray] = None        # (2,) uint32, host
 
     @property
     def has_plan(self) -> bool:

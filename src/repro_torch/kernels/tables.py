@@ -2,9 +2,9 @@
 
 The port's counterpart of ``repro.kernels.tables``. ``TableSpec`` and the
 ``--tables`` grammar (:func:`parse`) are copied verbatim, so a spec string
-means the same in both packages. The port runs f32 tables, replicated or
-vocab-sharded; :meth:`Tables.check_runnable` raises for mixed-precision
-specs until their slice lands.
+means the same in both packages. The port runs every storage dtype,
+replicated or vocab-sharded on one shard; :meth:`Tables.check_runnable`
+raises for more than one shard until the data-parallel slices land.
 """
 from __future__ import annotations
 
@@ -13,8 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-# storage dtypes a table may use (the reference's kernels.quant constant)
-STORAGE_DTYPES = ("float32", "bfloat16", "int8")
+from repro_torch.kernels.quant import STORAGE_DTYPES, TORCH_DTYPES
 
 _HOT_DTYPES = ("float32", "bfloat16")
 _ALIASES = {"f32": "float32", "fp32": "float32", "float32": "float32",
@@ -179,27 +178,34 @@ def from_config(cfg) -> TableSpec:
 class Tables:
     """The table tensors one engine step updates in place.
 
-    Replicated sessions hold the full ``(V, d)`` float32 pair in
-    ``w_in``/``w_out``. Vocab-sharded sessions hold the replicated hot
-    head there instead and the striped ``(cold_pad, d)`` tail in
-    ``cold_in``/``cold_out``; ``placement`` (a
-    ``repro_torch.distributed.vocab_placement.VocabPlacement``) describes
-    the split. int8 scales arrive with the mixed-precision slice."""
+    Replicated sessions hold the full ``(V, d)`` pair in ``w_in``/
+    ``w_out``, stored in ``spec.hot_dtype``. Vocab-sharded sessions hold
+    the replicated hot head there instead and the striped ``(cold_pad,
+    d)`` tail in ``cold_in``/``cold_out`` (stored in ``spec.cold_dtype``),
+    and for an int8 tail its per-row f32 scales in ``scale_in``/
+    ``scale_out`` (``(cold_pad,)``, striped like the cold rows);
+    ``placement`` (a ``repro_torch.distributed.vocab_placement
+    .VocabPlacement``) describes the split."""
     w_in: torch.Tensor
     w_out: torch.Tensor
     cold_in: Optional[torch.Tensor] = None
     cold_out: Optional[torch.Tensor] = None
+    scale_in: Optional[torch.Tensor] = None
+    scale_out: Optional[torch.Tensor] = None
     spec: TableSpec = TableSpec()
     placement: Optional[object] = None
 
     def check_runnable(self) -> None:
-        """Raise unless the port can run ``spec``: f32 tables, replicated
-        or vocab-sharded with their cold tail and placement present."""
-        if self.spec.is_mixed:
+        """Raise unless the port can run ``spec``: tables in the spec's
+        storage dtypes, replicated or vocab-sharded on one shard with
+        their cold tail (and int8 scales) and placement present."""
+        n = getattr(self.placement, "n_shards", 1)
+        if n > 1:
             raise NotImplementedError(
-                f"TableSpec {self.spec} stores tables below f32; "
-                f"mixed-precision tables arrive with a later slice of the "
-                f"torch port, only f32 tables run here")
+                f"a placement over {n} vocab shards arrives with a later "
+                f"slice of the torch port (ROADMAP item 8, on the process "
+                f"group of the data-parallel slice, item 7); one shard "
+                f"runs here")
         sharded = self.placement is not None
         has_cold = self.cold_in is not None and self.cold_out is not None
         if self.spec.vocab_shard != sharded or has_cold != sharded:
@@ -208,3 +214,19 @@ class Tables:
                 f"tables carry placement={self.placement!r} and "
                 f"{'cold tables' if has_cold else 'no cold tables'}; a "
                 f"vocab-sharded spec needs both, a replicated one neither")
+        has_scales = self.scale_in is not None and self.scale_out is not None
+        if has_scales != self.spec.needs_scales:
+            raise ValueError(
+                f"TableSpec(cold_dtype={self.spec.cold_dtype!r}) "
+                f"{'needs' if self.spec.needs_scales else 'takes no'} "
+                f"per-row int8 scales, but the tables carry "
+                f"{'them' if has_scales else 'none'}")
+        want = {"w_in": self.spec.hot_dtype, "w_out": self.spec.hot_dtype,
+                "cold_in": self.spec.cold_dtype,
+                "cold_out": self.spec.cold_dtype,
+                "scale_in": "float32", "scale_out": "float32"}
+        for name, dtype in want.items():
+            t = getattr(self, name)
+            if t is not None and t.dtype != TORCH_DTYPES[dtype]:
+                raise ValueError(f"{name} is stored as {t.dtype} but the "
+                                 f"TableSpec stores it as {dtype}")

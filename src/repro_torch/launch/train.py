@@ -7,15 +7,15 @@ defaults, on the GPU unless ``--device cpu`` is given:
       --sentences 30000 --sentences-per-batch 10000 --tile-windows 8
 
 ``--vocab-shard`` (one shard) and ``--hot-vocab-frac`` train with a
-vocab-sharded table; ``--tables`` takes f32 specs on at most one shard.
+vocab-sharded table; ``--tables`` takes any storage spec on at most one
+shard (``hot=bf16``, ``hot=bf16,cold=int8,shards=1,master=1``).
 ``--prefetch-workers/--prefetch-depth/--prefetch-mode`` run the async host
 pipeline (``repro_torch.data.prefetch``), ``--ckpt-dir/--ckpt-every``
 checkpoint and resume, and ``--max-restarts/--step-timeout/--health-every
 /--reset-after`` train under the recovery supervisor
 (``TrainSession.train_resilient``). Flags of features that arrive with
-later slices of the port (other workloads, more than one vocab shard,
-mixed-precision ``--tables``) are accepted by the parser and exit with an
-error that says so.
+later slices of the port (other workloads, more than one vocab shard)
+are accepted by the parser and exit with an error that says so.
 
 The module imports no torch at top level: process prefetch workers import
 the ``python -m`` module as their ``__mp_main__``.
@@ -33,15 +33,15 @@ WORKLOADS = ("w2v", "doc2vec", "node2vec", "subword")
 
 
 def _tables_later_slice(tables: str) -> bool:
-    """Whether a ``--tables`` spec needs a later slice: mixed-precision
-    storage or more than one shard (an unparsable spec is left to the
-    session, which raises the parser's own error)."""
+    """Whether a ``--tables`` spec needs a later slice: more than one
+    shard (an unparsable spec is left to the session, which raises the
+    parser's own error)."""
     from repro_torch.kernels.tables import parse
     try:
         spec = parse(tables)
     except ValueError:
         return False
-    return spec.is_mixed or spec.shards > 1
+    return spec.shards > 1
 
 
 def _unsupported(args) -> Optional[str]:
@@ -52,8 +52,8 @@ def _unsupported(args) -> Optional[str]:
          f"--vocab-shard {args.vocab_shard} (more than one shard needs the "
          f"data-parallel slice, ROADMAP item 7)"),
         (_tables_later_slice(args.tables),
-         f"--tables {args.tables} (mixed precision or more than one "
-         f"shard)"),
+         f"--tables {args.tables} (more than one shard of the "
+         f"vocabulary, in f32 or mixed precision; ROADMAP item 8)"),
     )
     for bad, flag in checks:
         if bad:
@@ -133,14 +133,19 @@ def run_w2v(args) -> int:
         trainer.train(max_batches=args.max_batches)
     if args.ckpt_dir:
         print("checkpoint:", trainer.save_checkpoint())
+    steps = max(1, trainer.state.batches_seen - (trainer.resumed_step or 0))
     print(f"throughput: {trainer.words_per_sec:,.0f} words/sec "
           f"({trainer.state.words_seen:,} words) "
-          f"device_busy_frac={trainer.device_busy_frac:.3f}")
+          f"device_busy_frac={trainer.device_busy_frac:.3f} "
+          f"host_batching_s_per_step={pipe.stats.seconds / steps:.4f} "
+          f"host_wait_s_per_step={trainer.fetch_seconds / steps:.4f}")
     # bit-exactness witness: identical configs print identical digests,
     # whatever the prefetch worker count or a resume in between
+    import torch
     digest = hashlib.sha1()
     for part in trainer.state.params().values():
-        digest.update(part.detach().cpu().numpy().tobytes())
+        digest.update(part.detach().cpu().contiguous().view(torch.uint8)
+                      .numpy().tobytes())
     print(f"final_digest={digest.hexdigest()}")
     inv = np.zeros(pipe.vocab.size, dtype=int)
     for w, i in pipe.vocab.ids.items():

@@ -43,9 +43,12 @@ def table_digest(state) -> str:
     """sha1 over every table of the state (``params()`` order: ``w_in``,
     ``w_out`` for a replicated session — the reference's digest — and the
     hot and cold tables of a vocab-sharded one), fetched to the host."""
+    import torch
+
     h = hashlib.sha1()
     for t in state.params().values():
-        h.update(t.detach().cpu().numpy().tobytes())
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy()
+                 .tobytes())
     return h.hexdigest()
 
 

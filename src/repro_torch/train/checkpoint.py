@@ -300,31 +300,51 @@ def list_steps(ckpt_dir: str) -> List[int]:
     return sorted(out)
 
 
+def _dir_state(d: str) -> str:
+    """The light completeness check of a step directory: ``"complete"``
+    (parseable manifest, arrays file present), ``"gone"`` (no such
+    directory) or ``"partial"``."""
+    try:
+        with open(os.path.join(d, "manifest.json")) as f:
+            json.load(f)
+        if os.path.exists(os.path.join(d, "arrays.npz")):
+            return "complete"
+    except (OSError, ValueError):
+        pass
+    return "partial" if os.path.isdir(d) else "gone"
+
+
 def latest_step(ckpt_dir: str) -> Optional[int]:
     """The newest step whose directory passes a light completeness check
     (parseable manifest + arrays file present). An incomplete directory
     is quarantined and the previous step returned instead; a publish
-    interrupted mid-rename is recovered first (``_clean_stale``)."""
+    interrupted mid-rename is recovered first (``_clean_stale``).
+
+    A directory that fails the check is read a second time before it is
+    quarantined: a same-step re-save displaces the old directory and
+    renames the new one into place, so between the two reads the name can
+    have gone and come back whole. A directory that passes the second read
+    is returned; one that is gone at the second read is skipped, never
+    quarantined (a republish may land under its name next)."""
     _clean_stale(ckpt_dir)
     steps = list_steps(ckpt_dir)
     while steps:
         step = steps.pop()
         d = os.path.join(ckpt_dir, f"step_{step:08d}")
-        try:
-            with open(os.path.join(d, "manifest.json")) as f:
-                json.load(f)
-            ok = os.path.exists(os.path.join(d, "arrays.npz"))
-        except (OSError, ValueError):
-            ok = False
-        if ok:
+        if _dir_state(d) == "complete":
             return step
+        state = _dir_state(d)
+        if state == "complete":
+            return step
+        if state == "gone":
+            continue
         log.warning("checkpoint step %d is partial — quarantining and "
                     "falling back", step)
         try:
             quarantine(ckpt_dir, step)
         except OSError:
-            # a concurrent publisher pruned/re-published the dir between
-            # our check and the rename — nothing left to quarantine
+            # a concurrent pruner removed the dir between our read and
+            # the rename — nothing left to quarantine
             pass
     return None
 

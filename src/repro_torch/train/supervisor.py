@@ -75,10 +75,12 @@ class SupervisorReport:
 
 
 def table_max_abs(params) -> dict:
-    """``max(|t|)`` of every table, read back in one device-to-host copy
-    (NaN/Inf propagate through max)."""
+    """``max(|t|)`` of every table over its storage values (an int8 tail
+    as stored, not decoded; its f32 scales are tables here too), read back
+    in one device-to-host copy (NaN/Inf propagate through max)."""
     names = list(params)
-    maxes = torch.stack([params[n].detach().abs().amax() for n in names])
+    maxes = torch.stack([params[n].detach().abs().amax().float()
+                         for n in names])
     return dict(zip(names, maxes.cpu().tolist()))
 
 

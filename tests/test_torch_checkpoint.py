@@ -237,6 +237,64 @@ def test_reader_at_every_rename_of_same_step_resaves(tmp_path, monkeypatch):
     assert not [n for n in os.listdir(d) if ".corrupt" in n or ".old." in n]
 
 
+def test_republish_between_check_and_quarantine_survives(tmp_path,
+                                                         monkeypatch):
+    """A same-step re-save's two renames (displace the old directory,
+    rename the new one into place) landed at every pair of points inside
+    one ``latest_step``: before it lists the steps, before its first and
+    second reads of the directory, before a quarantine, after it returns.
+    No republished directory is ever quarantined, what ``latest_step``
+    names is the old or the new checkpoint, whole, and where the republish
+    lands between the first read and the quarantine the reader returns the
+    new one."""
+    points = ("list", "read", "reread", "quarantine", "end")
+    real_state, real_quarantine = ckpt._dir_state, ckpt.quarantine
+    for i in range(len(points)):
+        for j in range(i, len(points)):
+            d = str(tmp_path / f"walk_{i}_{j}")
+            _save(d, 4, mark=0)
+            final = os.path.join(d, "step_00000004")
+            _save(d + ".new", 4, mark=1)
+            tmp = final + ".tmp.walk"
+            shutil.copytree(os.path.join(d + ".new", "step_00000004"), tmp)
+            # the writer's renames, each with the point it lands at; one
+            # whose point the reader never reaches lands at the next one
+            pending = [(i, final, final + ".old.walk"), (j, tmp, final)]
+            reached = []
+
+            def hook(point, pending=pending, reached=reached):
+                reached.append(point)
+                while pending and pending[0][0] <= points.index(point):
+                    os.rename(*pending.pop(0)[1:])
+
+            def state(path, hook=hook):
+                hook("read" if "read" not in reached else "reread")
+                return real_state(path)
+
+            def quarantine(ckpt_dir, step, hook=hook):
+                hook("quarantine")
+                return real_quarantine(ckpt_dir, step)
+
+            monkeypatch.setattr(ckpt, "_dir_state", state)
+            monkeypatch.setattr(ckpt, "quarantine", quarantine)
+            hook("list")
+            got = ckpt.latest_step(d)
+            monkeypatch.setattr(ckpt, "_dir_state", real_state)
+            monkeypatch.setattr(ckpt, "quarantine", real_quarantine)
+            hook("end")
+            case = (points[i], points[j])
+            assert not [n for n in os.listdir(d) if ".corrupt" in n], case
+            assert got in (None, 4), case
+            if case in (("read", "reread"), ("read", "quarantine")):
+                # the name was gone at the first read: a republish that
+                # lands before the second read is returned, a later one
+                # is left alone
+                assert got == (4 if points[j] == "reread" else None), case
+            _, extra = ckpt.peek(d, step=4)
+            assert extra["mark"] == 1, case
+            assert ckpt.latest_step(d) == 4, case
+
+
 # -- crash recovery ----------------------------------------------------------
 def test_truncated_arrays_falls_back_and_quarantines(tmp_path):
     d = str(tmp_path / "ck")
@@ -527,12 +585,30 @@ def test_continuation_from_reference_checkpoint_matches_reference(tmp_path):
 
 
 def test_mixed_precision_checkpoint_raises_later_slice(tmp_path):
-    """A checkpoint of bf16/int8 tables restores with the mixed-precision
-    slice: the port says so (and never reaches for ml_dtypes)."""
+    """A checkpoint of bf16 tables no longer waits for a later slice: the
+    mixed-precision slice restores the reference's into a bf16 session
+    with its exact bytes and into an f32 session decoded (reading bf16
+    through torch, never ml_dtypes); only more than one shard still
+    raises."""
     rcfg = ref_smoke(**_cfg_kw("T1", tables="hot=bf16"))
     d = str(tmp_path / "ref")
-    RefSession(RefPipeline(_corpus(), rcfg), rcfg, backend="jnp",
-               ckpt_dir=d, ckpt_every=1).train(max_batches=1)
-    with pytest.raises(NotImplementedError,
-                       match="mixed-precision checkpoint.*later slice"):
-        _port("T1", d)
+    ref = RefSession(RefPipeline(_corpus(), rcfg), rcfg, backend="jnp",
+                     ckpt_dir=d, ckpt_every=1)
+    ref.train(max_batches=1)
+    want = np.asarray(ref.state.w_in).view(np.uint16)
+
+    def session(tables=""):
+        cfg = smoke(**_cfg_kw("T1", tables=tables))
+        return TrainSession(make_pipeline(_corpus(), cfg), cfg,
+                            device="cpu", ckpt_dir=d)
+
+    mixed = session("hot=bf16")
+    assert mixed.resumed_step == 1
+    assert mixed.state.w_in.dtype == torch.bfloat16
+    assert np.array_equal(mixed.state.w_in.view(torch.int16).numpy()
+                          .view(np.uint16), want)
+    f32 = session()
+    assert f32.state.w_in.dtype == torch.float32
+    assert torch.equal(f32.state.w_in, mixed.state.w_in.float())
+    with pytest.raises(NotImplementedError, match="later slice"):
+        session("hot=bf16,shards=2")

@@ -1,7 +1,7 @@
 """The torch port stands alone: importing ``repro_torch`` (every module,
-``repro_torch.distributed`` and ``repro_torch.train`` included) and
-``chip_smoke`` leaves ``jax`` and the reference package ``repro``
-unloaded, and no source of the port names them in an import. A process
+``repro_torch.distributed``, ``repro_torch.train`` and
+``repro_torch.kernels.quant`` included) and ``chip_smoke`` leaves ``jax``,
+``ml_dtypes`` and the reference package ``repro`` unloaded, and no source of the port names them in an import. A process
 prefetch worker's import path (and the CLI module, which such a worker
 imports as its main module) leaves ``torch`` unloaded too."""
 import ast
@@ -27,12 +27,13 @@ def test_import_leaves_jax_and_reference_unloaded():
             importlib.import_module(name)
         import chip_smoke
         bad = sorted(n for n in sys.modules
-                     if n == "jax" or n.startswith("jax.")
-                     or n == "repro" or n.startswith("repro."))
+                     if n.split(".")[0] in ("jax", "repro", "ml_dtypes"))
         print("MODULES", len(mods))
         print("DISTRIBUTED", "repro_torch.distributed.vocab_placement" in mods)
         print("TRAIN", sorted(m for m in mods if m.startswith(
             "repro_torch.train.")))
+        print("KERNELS", sorted(m for m in mods if m.startswith(
+            "repro_torch.kernels.")))
         print("BAD", bad)
     """.format(repo=REPO)
     out = run_subprocess(code, timeout=300)
@@ -43,6 +44,8 @@ def test_import_leaves_jax_and_reference_unloaded():
     assert "DISTRIBUTED True" in out.stdout, out.stdout
     for mod in ("chaos", "checkpoint", "resilience", "supervisor"):
         assert f"'repro_torch.train.{mod}'" in out.stdout, out.stdout
+    for mod in ("quant", "tables", "ops", "registry"):
+        assert f"'repro_torch.kernels.{mod}'" in out.stdout, out.stdout
     assert "'repro_torch.data.prefetch'" not in out.stdout  # not train.*
 
 
@@ -91,4 +94,4 @@ def _imported_roots(path: pathlib.Path):
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_source_imports_jax_or_reference(path):
     roots = set(_imported_roots(path))
-    assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)
+    assert not roots & {"jax", "jaxlib", "repro", "ml_dtypes"}, sorted(roots)

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import sgns as ref
+import repro.core.sgns as ref
 from repro_torch.core import sgns
 
 

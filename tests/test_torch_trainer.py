@@ -89,7 +89,7 @@ def test_cuda_backend_on_cpu_session_raises():
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()),
                                 dict(cfg_tables="shards=2"),
-                                dict(cfg_tables="hot=bf16"),
+                                dict(cfg_tables="hot=bf16,shards=2"),
                                 dict(cfg_tables="cold=int8,shards=2")])
 def test_later_slice_features_raise(kw):
     cfg = smoke(tables=kw.pop("cfg_tables", ""))

@@ -368,11 +368,15 @@ def test_step_rejects_mismatched_tables_and_steps():
     with pytest.raises(ValueError, match="vocab_shard"):
         Tables(w_in=tables.w_in, w_out=tables.w_out,
                spec=TableSpec(vocab_shard=True)).check_runnable()
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # an int8 tail runs since the mixed-precision slice, with its scales
+    with pytest.raises(ValueError, match="scales"):
         Tables(w_in=tables.w_in, w_out=tables.w_out, cold_in=tables.cold_in,
                cold_out=tables.cold_out, placement=tables.placement,
                spec=TableSpec(vocab_shard=True, cold_dtype="int8")
                ).check_runnable()
+    _, _, two, _ = _sharded_step(2)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        two.check_runnable()
 
 
 def test_params_from_reference_takes_the_split_tree():
@@ -433,7 +437,7 @@ def test_cli_runs_vocab_sharded_on_cpu(flags):
 
 @pytest.mark.parametrize("flags,names", [
     (("--vocab-shard", "2"), "ROADMAP item 7"),
-    (("--tables", "cold=int8,shards=1"), "mixed precision"),
+    (("--tables", "cold=int8,shards=2"), "mixed precision"),
     (("--tables", "shards=4"), "more than one shard")])
 def test_cli_rejects_later_slice_sharding(flags, names):
     out = _cli(*flags)
