@@ -5,7 +5,7 @@ main path and times the kernels.
 
     python3 chip_smoke.py [--seed 0] [--sentences-per-batch 10000]
 
-About 8 min on an H100, most of it in the plain versions of phase 5.
+About 6 min on an H100, most of it in the plain versions of phase 5.
 
 Phases (each prints one line; any failure raises and the script exits
 non-zero):
@@ -88,6 +88,30 @@ non-zero):
               16 words, 8 epochs), ``hot=bf16:frac=0.1,cold=int8,shards=1,
               master=1`` (K1) against f32 (K2) on the same batches; the
               separation ratio must lie in 1.00 ± 0.01.
+10. mesh    — ranks of ``repro_torch.launch.mesh.start_ranks`` on the one
+              card over gloo (NCCL refuses two ranks on one device); they
+              time-slice it, so no scaling shows. N=2: (a) each collective
+              on CUDA tensors (f32, bf16, int8) against its numpy
+              definition; (b) data parallelism at phase 4's shapes (5,000
+              sentences a rank, 3 batches), T=1 (K2) and T=8 (K3): each rank
+              launches its kernel once per batch, the replicas hash alike
+              after every batch, and batch 1 equals, bit for bit, the mean
+              of the kernel launched in one process on each rank's block;
+              (c) vocab sharding, T=8 exact and dense (K4) and T=1 (K1): the
+              head bit for bit against (b) at the same T, the tail within
+              atol 1e-6 / rtol 1e-5 (DESIGN.md §8), exact against dense by
+              the same rule; (d) ``hot=bf16,cold=bf16,shards=2`` and
+              ``hot=bf16,cold=int8,shards=2,master=1`` (K4) at T=8: the heads
+              hash alike on every rank, each 2-rank checkpoint restores bit
+              for bit (embeddings) into a one-shard single-process session of
+              the same storage and into a replicated f32 session, and a
+              rerun of the int8 run ends with the same digest (the
+              owner-side merge's fixed order). N=4 (e), at reduced depth
+              (S=2,000, 2 batches): a data-parallel and an f32 exact sharded
+              T=8 run under the same rules. Prints each rank's kernel ms
+              (CUDA events; a span includes the other ranks' slices), each
+              collective's ms per step (host clock between synchronizes), s
+              per step, words/s and host batching per step.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the repository's ``src/`` beside it, the script fails before
@@ -1164,6 +1188,420 @@ def phase_mixed_quality(torch, np, args) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: multi-rank on the one card (ranks time-slice it over gloo)
+# ---------------------------------------------------------------------------
+
+# DESIGN.md §8's rule for the cold tail of a sharded run against the
+# replicated (data-parallel) run: summation orders differ at n > 2
+COLD_ATOL, COLD_RTOL = 1e-6, 1e-5
+MESH_MIXED = (("hot=bf16,cold=bf16,shards=2", "hot=bf16,cold=bf16,shards=1"),
+              ("hot=bf16,cold=int8,shards=2,master=1",
+               "hot=bf16,cold=int8,shards=1,master=1"))
+
+
+def _digest(torch, tensors) -> str:
+    """sha256 of the tensors' storage bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().contiguous().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def _all_ranks(mesh, value) -> list:
+    """Every rank's picklable ``value``, by rank."""
+    import torch.distributed as dist
+    out = [None] * mesh.size
+    dist.all_gather_object(out, value)
+    return out
+
+
+class MeshSpy:
+    """Wraps, while a rank trains, the collectives
+    (``repro_torch.distributed.collectives``: host ms per call between two
+    ``torch.cuda.synchronize()``, outermost calls only, so ``pmean``
+    counts its gather) and the kernels' launch functions in ``ops``
+    (device ms per launch, CUDA events on the rank's stream: with ranks
+    time-slicing one card a launch's span includes the other ranks'
+    work)."""
+    COLL = ("all_gather", "all_to_all", "psum_scatter", "pmean")
+    KERNELS = ("fullw2v_cuda", "fullw2v_cuda_tiled",
+               "fullw2v_cuda_tiled_fused")
+
+    def __init__(self, torch):
+        from repro_torch.distributed import collectives
+        from repro_torch.kernels import ops
+        self.torch, self.coll, self.ops = torch, collectives, ops
+        self.coll_s = {n: 0.0 for n in self.COLL}
+        self.calls = {n: 0 for n in self.COLL}
+        self.spans = []
+        self.depth = 0
+
+    def __enter__(self):
+        self.real = [(self.coll, n, getattr(self.coll, n))
+                     for n in self.COLL]
+        self.real += [(self.ops, n, getattr(self.ops, n))
+                      for n in self.KERNELS]
+        for mod, n, fn in self.real:
+            wrap = self._coll if mod is self.coll else self._kernel
+            setattr(mod, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, n, fn in self.real:
+            setattr(mod, n, fn)
+
+    def _coll(self, name, fn):
+        torch = self.torch
+
+        def run(*a, **kw):
+            if self.depth:
+                return fn(*a, **kw)
+            self.depth += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+            finally:
+                self.depth -= 1
+            self.coll_s[name] += time.perf_counter() - t0
+            self.calls[name] += 1
+            return out
+        return run
+
+    def _kernel(self, name, fn):
+        torch = self.torch
+
+        def run(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            self.spans.append((start, end))
+            return out
+        return run
+
+    def kernel_ms(self) -> list:
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.spans]
+
+
+def mesh_probe(torch, np, mesh) -> dict:
+    """Each collective on CUDA tensors (f32, bf16, int8; ``pmean`` f32)
+    against its numpy definition; every op runs on the tensors' device
+    (``collectives`` stages nothing through the host)."""
+    from repro_torch.distributed import collectives as coll
+
+    n, me, dev = mesh.size, mesh.rank, mesh.device
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "int8": torch.int8}
+
+    def make(r, dt):
+        rng = np.random.default_rng(r)
+        return rng.integers(-20, 20, size=(n, 3, 4)).astype(np.float64), dt
+
+    out = {}
+    for op in ("all_gather", "all_to_all", "psum_scatter", "pmean"):
+        for name, dt in dtypes.items():
+            if op == "pmean" and name != "float32":
+                continue
+            xs = [make(r, dt)[0] for r in range(n)]
+            x = torch.tensor(xs[me], device=dev).to(dt)
+            got = getattr(coll, op)(x, mesh)
+            if op == "all_gather":
+                want = np.stack(xs)
+            elif op == "all_to_all":
+                want = np.stack([xs[s][me] for s in range(n)])
+            elif op == "psum_scatter":
+                want = sum(x_[me] for x_ in xs)[None]
+            else:
+                want = sum(xs[1:], xs[0].astype(np.float32)) / np.float32(n)
+            if got.device != dev or got.dtype != dt or not np.array_equal(
+                    got.float().cpu().numpy(), np.asarray(want, np.float32)):
+                raise AssertionError(f"{op}({name}) on the card differs from "
+                                     f"its definition")
+            out[f"{op}/{name}"] = "ok"
+    return out
+
+
+def mesh_run(torch, np, mesh, args, corpus, vocab, tile: int, kernel: str,
+             emulate: bool = False, ckpt_dir=None, **cfg_kw) -> dict:
+    """One run on every rank of ``mesh``: ``args.batches`` batches of
+    ``args.S`` sentences (``args.S / n`` a rank) through
+    ``TrainSession(mesh=...)``, each rank launching ``kernel`` once per
+    batch (counts zeroed before, read after). After every batch the ranks'
+    replicated tables (the head of a sharded run) must hash alike.
+    ``emulate``: the first batch must equal, bit for bit, the mean of the
+    same kernel launched in one process on each rank's block from the same
+    tables. Returns timings and, on rank 0, the embeddings and the
+    gathered tables' digest."""
+    from repro_torch.core.trainer import TrainSession
+    from repro_torch.data.batching import BatchingPipeline
+    from repro_torch.kernels import fullw2v, ops
+    from repro_torch.kernels.tables import Tables
+    from repro_torch.launch.mesh import DataMesh
+
+    cfg = make_config(args, tile, **cfg_kw)
+    pipe = BatchingPipeline(corpus, cfg, vocab=vocab)
+    sess = TrainSession(pipe, cfg, backend="auto", mesh=mesh,
+                        ckpt_dir=ckpt_dir)
+    want_be = "cuda_tiled" if tile > 1 else (
+        "cuda" if sess.placement is not None else "cuda_pipelined")
+    if sess.backend != want_be:
+        raise AssertionError(f"T={tile} resolved to {sess.backend}")
+    first = None
+    if emulate:
+        batch = next(BatchingPipeline(corpus, cfg, vocab=vocab).batches(
+            pad_len=cfg.resolved_pad_len, epoch=0))
+        lr = sess.current_lr()
+        halves = []
+        for r in range(mesh.size):
+            tabs = Tables(w_in=sess.state.w_in.clone(),
+                          w_out=sess.state.w_out.clone())
+            block = DataMesh(rank=r, size=mesh.size, device=mesh.device)
+            ops.step(tabs, batch.step_inputs(lr, mesh.device, mesh=block),
+                     cfg, backend=sess.backend)
+            halves.append((tabs.w_in, tabs.w_out))
+        first = []
+        for i in (0, 1):            # (a + b) / 2, summed as pmean sums
+            acc = halves[0][i].clone()
+            for h in halves[1:]:
+                acc += h[i]
+            first.append(acc / mesh.size)
+    checks = {"digest_s": 0.0, "replicas_equal": 0}
+
+    def after(state):
+        t0 = time.perf_counter()
+        if first is not None and state.batches_seen == 1:
+            if not all(torch.equal(a.view(torch.int32),
+                               b.view(torch.int32)) for a, b in zip(
+                    first, (state.w_in, state.w_out))):
+                raise AssertionError(f"T={tile}: batch 1 differs from the "
+                                     f"mean of the per-block updates")
+            checks["emulated"] = True
+        digests = _all_ranks(mesh, _digest(torch, (state.w_in,
+                                                   state.w_out)))
+        if len(set(digests)) != 1:
+            raise AssertionError(f"T={tile} batch {state.batches_seen}: "
+                                 f"replicas differ across ranks")
+        checks["replicas_equal"] += 1
+        checks["digest_s"] += time.perf_counter() - t0
+
+    sess.on_batch = after
+    fullw2v.reset_launch_counts()
+    with MeshSpy(torch) as spy:
+        sess.train(max_batches=args.batches)
+    n = _launched(kernel, args.batches)
+    kms = spy.kernel_ms()
+    batches = sess.state.batches_seen
+    if ckpt_dir:
+        sess.save_checkpoint()
+    emb = sess.embeddings()
+    digest = _digest(torch, sess.gathered_params().values())
+    for name, t in sess.state.params().items():
+        if not bool(torch.isfinite(t.float()).all()):
+            raise AssertionError(f"{name} has non-finite values")
+    step_s = (sess.wall_seconds - checks["digest_s"]) / batches
+    mine = dict(launches=n, kernel_ms=sum(kms) / len(kms),
+                coll_ms={k: 1e3 * v / batches for k, v in spy.coll_s.items()
+                         if spy.calls[k]},
+                coll_calls={k: v // batches for k, v in spy.calls.items()
+                            if v},
+                host_batching_s_per_step=pipe.stats.seconds / batches,
+                s_per_step=step_s,
+                words_per_s=sess.state.words_seen / (step_s * batches))
+    ranks = _all_ranks(mesh, mine)
+    out = dict(ranks=ranks, digest=digest, emb=emb,
+               emulated=checks.get("emulated", False),
+               replicas_equal=checks["replicas_equal"], placement=(
+                   None if sess.placement is None else
+                   sess.placement.to_extra()))
+    if mesh.rank == 0:
+        r0 = ranks[0]
+        _line("mesh", n=mesh.size, T=tile, S=args.S,
+              S_per_rank=args.S // mesh.size, batches=batches,
+              tables=cfg.tables or "f32", vocab_shard=cfg.vocab_shard,
+              exchange=sess.exchange if sess.placement else "-",
+              backend=f"{mesh.backend}@{mesh.device}", kernel=kernel,
+              launches_per_rank=[r["launches"] for r in ranks],
+              kernel_ms_per_rank=[f"{r['kernel_ms']:.1f}" for r in ranks],
+              coll_ms_per_step={k: f"{v:.1f}" for k, v in
+                                r0["coll_ms"].items()},
+              coll_calls_per_step=r0["coll_calls"],
+              s_per_step=f"{r0['s_per_step']:.4f}",
+              words_per_s=f"{r0['words_per_s']:.0f}",
+              host_batching_s_per_step=f"{r0['host_batching_s_per_step']:.4f}",
+              replicas_equal=f"{checks['replicas_equal']}/{batches}",
+              emulated="bitwise" if first is not None else "-",
+              note=("ranks time-slice one card" if mesh.backend == "gloo"
+                    else "a card a rank"))
+    return out
+
+
+def _hot_cold(np, name, emb, base, placement) -> float:
+    """DESIGN.md §8: the head bit for bit, the tail within the rule."""
+    hot = placement["hot"]
+    if not np.array_equal(emb[:hot], base[:hot]):
+        raise AssertionError(f"{name}: hot head differs")
+    err = np.abs(emb[hot:] - base[hot:])
+    bad = err > COLD_ATOL + COLD_RTOL * np.abs(base[hot:])
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} cold elements "
+                             f"outside atol={COLD_ATOL} rtol={COLD_RTOL}")
+    return float(err.max()) if err.size else 0.0
+
+
+def mesh_phase(mesh, args, frac: float, tmp: str) -> dict:
+    """Phase 10 on one rank of the N=2 mesh (a-d); every rank runs it,
+    rank 0's result returns to the parent."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.trainer import TrainSession
+    from repro_torch.data.batching import BatchingPipeline
+    from repro_torch.kernels import _build, fullw2v
+
+    _build.load()
+    out = {"probe": mesh_probe(torch, np, mesh)}
+    if mesh.rank == 0:
+        _line("mesh", probe=out["probe"], path="direct (every op)",
+              backend=f"{mesh.backend}@{mesh.device}", ranks=mesh.size)
+    corpus = make_corpus(args, args.S * args.batches)
+    vocab = BatchingPipeline(corpus, make_config(args, 1)).vocab
+    launches = {}
+
+    def keep(key, kernel, r):
+        launches.setdefault(kernel, {})[key] = [x["launches"]
+                                                for x in r["ranks"]]
+        return r
+
+    # b. data parallelism: K2 at T=1, K3 at T=8
+    dp = {}
+    for tile, kernel in ((1, "cuda_pipelined"), (8, "cuda_tiled")):
+        dp[tile] = keep(f"N=2 dp T={tile}", kernel, mesh_run(
+            torch, np, mesh, args, corpus, vocab, tile, kernel,
+            emulate=True))
+        if not dp[tile]["emulated"]:
+            raise AssertionError("the emulation was not checked")
+    # c. vocab sharding: K4 exact and dense at T=8, K1 at T=1
+    vs = {}
+    for tile, exchange, kernel in ((8, "exact", "cuda_tiled_fused"),
+                                   (8, "dense", "cuda_tiled_fused"),
+                                   (1, "exact", "cuda")):
+        r = keep(f"N=2 sharded {exchange} T={tile}", kernel, mesh_run(
+            torch, np, mesh, args, corpus, vocab, tile, kernel,
+            vocab_shard=True, hot_vocab_frac=frac,
+            tables=f"shards=2,exchange={exchange}"))
+        vs[tile, exchange] = r
+        if mesh.rank == 0:
+            err = _hot_cold(np, f"sharded {exchange} T={tile} vs dp",
+                            r["emb"], dp[tile]["emb"], r["placement"])
+            _line("mesh", rule="§8", n=2, T=tile, exchange=exchange,
+                  against=f"dp T={tile}", hot="bitwise",
+                  cold_max_abs_err=f"{err:.3e}")
+    if mesh.rank == 0:
+        err = _hot_cold(np, "exact vs dense", vs[8, "exact"]["emb"],
+                        vs[8, "dense"]["emb"], vs[8, "exact"]["placement"])
+        _line("mesh", rule="§8", n=2, T=8, exchange="exact vs dense",
+              hot="bitwise", cold_max_abs_err=f"{err:.3e}")
+    del dp, vs
+    # d. mixed storage, checkpoints across layouts, a rerun's digest
+    mixed = {}
+    for tables, one in MESH_MIXED:
+        d = os.path.join(tmp, tables.replace(",", "_").replace("=", "-"))
+        r = keep(f"N=2 {tables} T=8", "cuda_tiled_fused", mesh_run(
+            torch, np, mesh, args, corpus, vocab, 8, "cuda_tiled_fused",
+            ckpt_dir=d, vocab_shard=True, hot_vocab_frac=frac,
+            tables=tables))
+        mixed[tables] = r
+        if mesh.rank == 0:
+            for spec in (one, ""):
+                cfg = make_config(args, 8, tables=spec,
+                                  vocab_shard=bool(spec),
+                                  hot_vocab_frac=frac)
+                back = TrainSession(BatchingPipeline(corpus, cfg,
+                                                     vocab=vocab),
+                                    cfg, device=mesh.device, ckpt_dir=d)
+                if back.resumed_step != args.batches or not np.array_equal(
+                        back.embeddings(), r["emb"]):
+                    raise AssertionError(f"{tables} checkpoint restored "
+                                         f"into {spec or 'f32'} differs")
+                _line("mesh", restore=f"{tables} (2 ranks) -> "
+                      f"{spec or 'replicated f32'} (1 process)",
+                      resumed_step=back.resumed_step, embeddings="bitwise")
+                del back
+        mesh.barrier()
+    tables = MESH_MIXED[1][0]
+    again = mesh_run(torch, np, mesh, args, corpus, vocab, 8,
+                     "cuda_tiled_fused", vocab_shard=True,
+                     hot_vocab_frac=frac, tables=tables)
+    if again["digest"] != mixed[tables]["digest"]:
+        raise AssertionError(f"{tables}: a rerun's final digest differs")
+    if mesh.rank == 0:
+        _line("mesh", rerun=tables, final_digest=again["digest"][:16],
+              same="bitwise (the owner-side merge's fixed order)")
+    fullw2v.reset_launch_counts()
+    return dict(launches=launches, probe=out["probe"], backend=mesh.backend)
+
+
+def mesh_phase_four(mesh, args, frac: float) -> dict:
+    """Phase 10e on one rank of the N=4 mesh: a data-parallel T=8 run and
+    an f32 exact sharded T=8 run at reduced depth, held to §8's rules."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.batching import BatchingPipeline
+    from repro_torch.kernels import _build
+
+    _build.load()
+    corpus = make_corpus(args, args.S * args.batches)
+    vocab = BatchingPipeline(corpus, make_config(args, 1)).vocab
+    dp = mesh_run(torch, np, mesh, args, corpus, vocab, 8, "cuda_tiled",
+                  emulate=False)
+    vs = mesh_run(torch, np, mesh, args, corpus, vocab, 8,
+                  "cuda_tiled_fused", vocab_shard=True, hot_vocab_frac=frac,
+                  tables="shards=4,exchange=exact")
+    if mesh.rank == 0:
+        err = _hot_cold(np, "N=4 sharded vs dp", vs["emb"], dp["emb"],
+                        vs["placement"])
+        _line("mesh", rule="§8", n=4, T=8, exchange="exact",
+              against="dp T=8", hot="bitwise",
+              cold_max_abs_err=f"{err:.3e}",
+              note=f"reduced depth: S={args.S}, {args.batches} batches")
+    return {"launches": {
+        "cuda_tiled": {"N=4 dp T=8": [r["launches"] for r in dp["ranks"]]},
+        "cuda_tiled_fused": {"N=4 sharded exact T=8": [
+            r["launches"] for r in vs["ranks"]]}}}
+
+
+def phase_mesh(args, frac: float) -> dict:
+    """Phase 10: the ranks on the one card over gloo, N=2 (a-d) then N=4
+    (e, reduced depth); returns the launches by run."""
+    from repro_torch.launch.mesh import start_ranks
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        two = start_ranks(mesh_phase, 2, "cuda", args, frac, tmp,
+                          timeout=600)
+    four = start_ranks(mesh_phase_four, 4, "cuda",
+                       argparse.Namespace(**{**vars(args), "S": 2000,
+                                             "batches": 2}), frac,
+                       timeout=300)
+    _line("mesh", seconds=f"{time.perf_counter() - t0:.1f}",
+          note=("ranks share one card over gloo: no scaling is shown"
+                if two["backend"] == "gloo" else "NCCL, a card a rank"))
+    out = two["launches"]
+    for kernel, runs in four["launches"].items():
+        out.setdefault(kernel, {}).update(runs)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1273,6 +1711,10 @@ def main(argv=None) -> int:
         phase_resume(torch, np, args, sess_mx, tmp, "T=8 mixed int8 master",
                      2)
     quality = phase_mixed_quality(torch, np, args)
+
+    # 10. multi-rank on the one card: data parallelism and vocab sharding
+    # on gloo ranks that time-slice it (N=2, then N=4 at reduced depth)
+    mesh_launches = phase_mesh(args, frac)
     mixed_launches = {"cuda": {QUALITY_MIXED: quality["mixed"]["launches"]}}
     for (tables, tile), m in mixed.items():
         mixed_launches.setdefault(m["kernel"], {})[tables] = m["launches"]
@@ -1325,6 +1767,8 @@ def main(argv=None) -> int:
                 "host_prefetched", "host_rejected")})
         # launches under bf16/int8 storage (phase 9), by --tables spec
         row["mixed_launches"] = mixed_launches[name]
+        # launches on each rank of phase 10's runs, by run
+        row["multi_rank_launches"] = mesh_launches.get(name, {})
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,14 +32,18 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
 
 
 def params_from_reference(params: Mapping[str, np.ndarray],
-                          device) -> TrainState:
+                          device, mesh=None) -> TrainState:
     """A fresh :class:`TrainState` on ``device`` holding copies of the
     reference's tables, storage bits unchanged (progress counters at
     zero): the replicated tree ``{"w_in", "w_out"}`` (float32 or
     bfloat16) or the vocab-sharded split tree ``{"hot_in", "hot_out",
     "cold_in", "cold_out"}`` (a float32 or bfloat16 head, a float32,
     bfloat16 or int8 tail; an int8 tail adds ``{"scale_in",
-    "scale_out"}``, float32 per-row scales)."""
+    "scale_out"}``, float32 per-row scales). The split tree of an
+    N-device reference session holds the whole shard-major tail
+    ``(cold_pad, d)``; under a ``mesh`` of N ranks
+    (``repro_torch.launch.mesh.DataMesh``) rank r keeps stripe r, the
+    rows of its shard."""
     names = _SPLIT if "hot_in" in params else _REPLICATED
     missing = set(names) - set(params)
     if missing:
@@ -61,6 +65,16 @@ def params_from_reference(params: Mapping[str, np.ndarray],
             len({a.shape[1] for a in arrays}) != 1:
         raise ValueError(f"expected (rows, d) in/out pairs of one d, got "
                          f"{[a.shape for a in arrays]}")
+    if names == _SPLIT and mesh is not None and mesh.size > 1:
+        if arrays[2].shape[0] % mesh.size:
+            raise ValueError(
+                f"a cold tail of {arrays[2].shape[0]} rows does not stripe "
+                f"over {mesh.size} ranks")
+        cps = arrays[2].shape[0] // mesh.size
+        rows = slice(mesh.rank * cps, (mesh.rank + 1) * cps)
+        params = {k: (np.asarray(v)[rows] if k in _SPLIT[2:] + _SCALES
+                      else v) for k, v in params.items()}
+        arrays[2:] = [np.asarray(params[k]) for k in _SPLIT[2:]]
     int8 = names == _SPLIT and dts[2] == "int8"
     if int8 != any(k in params for k in _SCALES):
         raise ValueError(

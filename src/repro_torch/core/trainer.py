@@ -14,14 +14,22 @@ combinations — unknown backend, a CUDA kernel on the CPU — fail fast.
 The session runs on the GPU unless the caller passes ``device="cpu"``:
 with ``device=None`` and no GPU it raises rather than quietly running the
 plain versions on the CPU. ``cfg.vocab_shard`` splits the tables into a
-replicated hot head and a cold tail on one shard (DESIGN.md §8), with the
-row exchange planned per batch by ``repro_torch.distributed
+replicated hot head and a cold tail striped over the shards (DESIGN.md
+§8), with the row exchange planned per batch by ``repro_torch.distributed
 .vocab_placement``. ``cfg.tables`` stores the tables below f32
 (DESIGN.md §11): a bf16 head, a bf16 or int8 cold tail with per-row
 scales; each step carries its batch's rounding key, so stochastic storage
 rounding replays bit for bit at any worker count and through a resume.
-Data-parallel meshes (and with them more than one vocab shard) arrive
-with later slices of the port and raise until then.
+
+A ``mesh`` (``repro_torch.launch.mesh.DataMesh``: one rank of a
+``torch.distributed`` group, one process per rank) trains data-parallel:
+every rank builds the same keyed batches, takes its block of sentences,
+updates its replica and averages it with the others' (Hogwild, the
+paper's multi-GPU design); with ``cfg.vocab_shard`` the cold tail is
+striped over the ranks, one shard each, and rank r holds stripe r.
+Checkpoints keep the reference's layout (rank 0 writes the gathered
+tables), and :meth:`TrainSession.embeddings` of a sharded session is a
+collective every rank calls.
 
 The kernels update the tables in place (the reference reassigns them), so
 a checkpoint copies them to the host with a blocking ``.cpu()`` on the
@@ -30,9 +38,11 @@ replaces the tables with new tensors, never aliases them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import logging
+import os
 import time
 from typing import Callable, Dict, Iterator, List, Optional, Set, Tuple
 
@@ -45,6 +55,7 @@ from repro_torch.kernels import ops, quant, registry
 from repro_torch.kernels import tables as tables_mod
 from repro_torch.kernels.registry import StepInputs
 from repro_torch.kernels.tables import Tables, TableSpec
+from repro_torch.launch.mesh import DataMesh
 
 log = logging.getLogger("repro_torch.trainer")
 
@@ -124,7 +135,7 @@ def resolve_device(device) -> torch.device:
 
 def init_state(vocab_size: int, cfg: W2VConfig, seed: int = 0,
                device=None, placement=None,
-               spec: Optional[TableSpec] = None) -> TrainState:
+               spec: Optional[TableSpec] = None, mesh=None) -> TrainState:
     """Mikolov init: w_in ~ U(-0.5/d, 0.5/d), w_out = 0, drawn from a CPU
     ``torch.Generator`` seeded with ``seed`` (the same tables on every
     device; different numbers from the reference's ``jax.random`` — use
@@ -137,9 +148,10 @@ def init_state(vocab_size: int, cfg: W2VConfig, seed: int = 0,
 
     With a ``placement`` (vocab sharding) the *same* full-table init is
     drawn and then split hot/cold, so a sharded session starts from
-    exactly the tables a replicated one would. Sub-f32 storage dtypes in
-    ``spec`` encode the init round-to-nearest; ``w_out = 0`` is exact in
-    every storage dtype."""
+    exactly the tables a replicated one would; under a ``mesh`` every
+    rank draws it and keeps its stripe of the cold tail (the reference's
+    ``_cold_put``). Sub-f32 storage dtypes in ``spec`` encode the init
+    round-to-nearest; ``w_out = 0`` is exact in every storage dtype."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     d = cfg.dim
@@ -147,15 +159,26 @@ def init_state(vocab_size: int, cfg: W2VConfig, seed: int = 0,
                        dtype=torch.float32) - 0.5) / d
     w_out = torch.zeros((vocab_size, d), dtype=torch.float32)
     return _encoded_state(w_in.numpy(), w_out.numpy(), device, placement,
-                          spec or TableSpec(vocab_shard=placement is not None))
+                          spec or TableSpec(vocab_shard=placement is not None),
+                          mesh)
+
+
+def _stripe(placement, mesh) -> slice:
+    """This rank's rows of the shard-major cold tail ``(cold_pad, ...)``
+    (every row without a mesh)."""
+    if mesh is None:
+        return slice(0, placement.cold_pad)
+    cps = placement.cold_per_shard
+    return slice(mesh.rank * cps, (mesh.rank + 1) * cps)
 
 
 def _encoded_state(full_in: np.ndarray, full_out: np.ndarray, device,
-                   placement, spec: TableSpec) -> TrainState:
+                   placement, spec: TableSpec, mesh=None) -> TrainState:
     """A state holding the f32 full tables ``(V, d)`` split through
-    ``placement`` (when given) and encoded round-to-nearest into
-    ``spec``'s storage dtypes, as new tensors on ``device``: the seam that
-    init and cross-format restores share."""
+    ``placement`` (when given; this rank's stripe of the cold tail) and
+    encoded round-to-nearest into ``spec``'s storage dtypes, as new
+    tensors on ``device``: the seam that init and cross-format restores
+    share."""
     def enc(a: np.ndarray, dtype: str):
         payload, scale = quant.encode_nearest(torch.from_numpy(a), dtype)
         return (payload.to(device, copy=True),
@@ -166,17 +189,13 @@ def _encoded_state(full_in: np.ndarray, full_out: np.ndarray, device,
                           w_out=enc(full_out, spec.hot_dtype)[0])
     (hot_in, cold_in), (hot_out, cold_out) = (
         placement.split(t) for t in (full_in, full_out))
-    c_in, s_in = enc(cold_in, spec.cold_dtype)
-    c_out, s_out = enc(cold_out, spec.cold_dtype)
+    rows = _stripe(placement, mesh)
+    c_in, s_in = enc(cold_in[rows], spec.cold_dtype)
+    c_out, s_out = enc(cold_out[rows], spec.cold_dtype)
     return TrainState(w_in=enc(hot_in, spec.hot_dtype)[0],
                       w_out=enc(hot_out, spec.hot_dtype)[0],
                       cold_in=c_in, cold_out=c_out, scale_in=s_in,
                       scale_out=s_out)
-
-
-def _later_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} arrives with a later slice of the "
-                               f"torch port")
 
 
 class _PinnedLift:
@@ -262,8 +281,12 @@ class TrainSession:
     backend : registry name or ``"auto"``, resolved once at construction
         against ``device`` (``cfg.tile_windows > 1`` selects the
         window-tiled family).
-    device : ``None`` (the GPU; raises without one), ``"cuda"``,
-        ``"cuda:N"`` or ``"cpu"``.
+    device : ``None`` (the mesh's device, else the GPU; raises without
+        one), ``"cuda"``, ``"cuda:N"`` or ``"cpu"``.
+    mesh : a ``repro_torch.launch.mesh.DataMesh`` for Hogwild data
+        parallelism (one session per rank, every rank constructing it);
+        with ``cfg.vocab_shard`` its ranks are the vocab shards. A
+        ``shards=N`` storage spec needs a mesh of N ranks (no mesh: one).
     ckpt_dir / ckpt_every : when set, checkpoint every N batches (atomic,
         pruned) and — unless ``resume=False`` — restore the latest
         checkpoint at construction, continuing words/batches/epoch counts
@@ -289,19 +312,31 @@ class TrainSession:
         resume: bool = True,
         exchange: Optional[str] = None,
     ):
-        if mesh is not None:
-            raise _later_slice("data-parallel training (mesh)")
+        if mesh is not None and not isinstance(mesh, DataMesh):
+            raise TypeError(f"mesh must be a repro_torch.launch.mesh."
+                            f"DataMesh, got {type(mesh).__name__}")
+        self.mesh = mesh
         self.pipeline = pipeline
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.device)
+        if mesh is not None and device is not None:
+            want = torch.device(device)
+            if want.type != self.device.type or want.index not in (
+                    None, self.device.index):
+                raise ValueError(f"device {want} differs from the mesh "
+                                 f"rank's device {self.device}")
+        ranks = 1 if mesh is None else mesh.size
         spec = tables_mod.from_config(cfg)
         if exchange is not None:
             spec = dataclasses.replace(spec, exchange=exchange)
-        if spec.shards > 1:
-            raise _later_slice(f"more than one vocab shard (shards="
-                               f"{spec.shards}; ROADMAP item 8, on the "
-                               f"process group of the data-parallel "
-                               f"slice, item 7)")
+        if spec.shards and spec.shards != ranks:
+            raise ValueError(
+                f"the storage spec asks for shards={spec.shards} but the "
+                f"session runs {ranks} rank{'s' if ranks > 1 else ''} "
+                f"({'no mesh' if mesh is None else 'its mesh'}); one vocab "
+                f"shard per rank: pass a mesh of {spec.shards} ranks "
+                f"(repro_torch.launch.mesh.start_ranks)")
         self.spec = spec
         self.exchange = spec.exchange
         # the requested name is kept for dispatch so batches without a plan
@@ -313,6 +348,9 @@ class TrainSession:
             dtypes=() if self.spec.master_copy else self.spec.dtypes,
             frontends=getattr(pipeline, "frontend_features", ()),
             platform=self.device.type).name
+        if mesh is not None and not registry.get(self.backend).supports_mesh:
+            raise ValueError(
+                f"backend {self.backend!r} does not support mesh sharding")
         self.on_batch = on_batch
         self.on_metrics = on_metrics
         self.ckpt_dir = ckpt_dir
@@ -322,14 +360,16 @@ class TrainSession:
         if self.spec.vocab_shard:
             from repro_torch.distributed.vocab_placement import \
                 VocabPlacement
-            # one shard: more need the data-parallel slice's process group
-            self.placement = VocabPlacement.plan(pipeline.vocab.counts, 1,
+            # one shard per rank
+            self.placement = VocabPlacement.plan(pipeline.vocab.counts,
+                                                 ranks,
                                                  hot_frac=self.spec.hot_frac)
             # the pipeline plans each batch's exchange as it finalizes it
             # (Batch.exchange); _make_step plans inline for batches without
             pipeline.placement = self.placement
         self.state = init_state(table_rows, cfg, cfg.seed, self.device,
-                                placement=self.placement, spec=self.spec)
+                                placement=self.placement, spec=self.spec,
+                                mesh=mesh)
         self._tables().check_runnable()
         self.total_words = max(1, pipeline.epoch_words * cfg.epochs)
         self.words_per_sec = 0.0
@@ -373,14 +413,14 @@ class TrainSession:
         pure function of (seed, epoch, batch index) computed on the
         host."""
         if self.placement is None:
-            step = batch.step_inputs(lr, self.device, put=put)
+            step = batch.step_inputs(lr, self.device, put=put, mesh=self.mesh)
         else:
             ex = getattr(batch, "exchange", None)
             if ex is None or ex.placement != self.placement:
                 from repro_torch.distributed.vocab_placement import \
                     plan_exchange
                 ex = plan_exchange(batch, self.placement)
-            step = ex.step_inputs(lr, self.device, put=put)
+            step = ex.step_inputs(lr, self.device, put=put, mesh=self.mesh)
         if self.spec.is_mixed:
             step.round_key = quant.round_key(self.cfg.seed, batch.epoch,
                                              batch.index)
@@ -416,7 +456,7 @@ class TrainSession:
             step = self._make_step(batch, lr)
         if not skipped:
             ops.step(self._tables(), step, self.cfg,
-                     backend=self._requested_backend)
+                     backend=self._requested_backend, mesh=self.mesh)
         if self._lift is not None:
             self._lift.ended()
         self.state.words_seen += batch.n_words
@@ -524,8 +564,15 @@ class TrainSession:
         replay on step failure, health-probe rollback, watchdog timeouts,
         restart budget with refill (``repro_torch.train.supervisor``,
         DESIGN.md §9). Keyword arguments go to :class:`TrainSupervisor`;
-        its :class:`SupervisorReport` lands on ``self.last_report``."""
+        its :class:`SupervisorReport` lands on ``self.last_report``.
+        Runs on one rank only: a rollback under a mesh needs every rank to
+        agree on it (ROADMAP item 10)."""
         from repro_torch.train.supervisor import TrainSupervisor
+        if self.mesh is not None and self.mesh.size > 1:
+            raise NotImplementedError(
+                f"supervised recovery under a mesh of {self.mesh.size} "
+                f"ranks needs the ranks to agree on every rollback "
+                f"(ROADMAP item 10); train() runs under a mesh")
         sup = TrainSupervisor(self, **kwargs)
         words0 = self.state.words_seen
         self.fetch_seconds = 0.0
@@ -552,11 +599,32 @@ class TrainSession:
         return max(0.0, 1.0 - self.fetch_seconds / self.wall_seconds)
 
     # -- checkpoint / resume --------------------------------------------------
+    def _split_across_ranks(self) -> bool:
+        return (self.placement is not None and self.mesh is not None
+                and self.mesh.size > 1)
+
+    def gathered_params(self) -> Dict[str, torch.Tensor]:
+        """:meth:`TrainState.params` in the reference's layout: a
+        vocab-sharded session's cold tail (and int8 scales) all-gathered
+        into the shard-major ``(cold_pad, ...)`` tables, in storage
+        dtypes. A collective every rank of a sharded mesh calls; the
+        state's own tensors otherwise (the replicas of a data-parallel
+        mesh are equal)."""
+        params = self.state.params()
+        if not self._split_across_ranks():
+            return params
+        from repro_torch.distributed import collectives as coll
+        return {k: (coll.all_gather(v, self.mesh).reshape(-1, *v.shape[1:])
+                    if k.startswith(("cold", "scale")) else v)
+                for k, v in params.items()}
+
     def save_checkpoint(self) -> str:
         """Atomically checkpoint tables + progress counters + the host
         pipeline cursor (exact mid-epoch resume, prefetch or not). The
         tables' device-to-host copy blocks on the compute stream, so it
-        sees every kernel launched so far and no later one."""
+        sees every kernel launched so far and no later one. Under a mesh
+        every rank calls it: rank 0 writes the gathered tables
+        (:meth:`gathered_params`) and the ranks leave together."""
         from repro_torch.train import checkpoint as ckpt
         assert self.ckpt_dir, "TrainSession has no ckpt_dir"
         cursor = ckpt.PipelineCursor(
@@ -568,28 +636,47 @@ class TrainSession:
                  **cursor.to_extra()}
         if self.placement is not None:
             extra["vocab_shard"] = self.placement.to_extra()
-        return ckpt.save(
-            self.ckpt_dir, self.state.batches_seen, self.state.params(),
-            extra=extra)
+        params = self.gathered_params()
+        path = os.path.join(self.ckpt_dir,
+                            f"step_{self.state.batches_seen:08d}")
+        if self.mesh is None or self.mesh.rank == 0:
+            path = ckpt.save(self.ckpt_dir, self.state.batches_seen, params,
+                             extra=extra)
+        if self.mesh is not None:
+            self.mesh.barrier()
+        return path
+
+    def _full_like(self) -> Dict:
+        """The checkpoint leaves this session writes: its tables' shapes
+        in the gathered layout, storage dtype names."""
+        from repro_torch.train import checkpoint as ckpt
+        out = {}
+        for k, v in self.state.params().items():
+            shape = tuple(v.shape)
+            if k.startswith(("cold", "scale")):
+                shape = (self.placement.cold_pad, *shape[1:])
+            out[k] = ckpt.ArraySpec(shape,
+                                    str(v.dtype).removeprefix("torch."))
+        return out
 
     def _restore_tables(self, step: int) -> Dict:
         """Restore embedding tables across table *formats*: split-table
-        (vocab-sharded) vs replicated, and any storage-dtype mix — a
-        mixed-precision checkpoint restores into an f32 session and back.
-        Same-format restores (same leaf set, shapes and dtypes, and for
-        split tables the same placement, compared exactly) load the tables
-        as stored, keeping their exact bytes. Cross-format restores decode
-        the writing run's storage to the full f32 tables (through its
-        placement and TableSpec, both recorded in the checkpoint) and
-        re-encode them round-to-nearest through this session's. Every
-        restored table is a new tensor on the session's device."""
+        (vocab-sharded, any shard count) vs replicated, and any
+        storage-dtype mix — a mixed-precision checkpoint restores into an
+        f32 session and back. Same-format restores (same leaf set, shapes
+        and dtypes, and for split tables the same placement, compared
+        exactly) load the tables as stored, keeping their exact bytes.
+        Cross-format restores decode the writing run's storage to the full
+        f32 tables (through its placement and TableSpec, both recorded in
+        the checkpoint) and re-encode them round-to-nearest through this
+        session's, never copying raw rows between shard counts. A rank of
+        a sharded mesh keeps its stripe of the cold tail. Every restored
+        table is a new tensor on the session's device."""
         from repro_torch.distributed.vocab_placement import VocabPlacement
         from repro_torch.train import checkpoint as ckpt
         leaves, extra = ckpt.peek(self.ckpt_dir, step=step)
         split_ckpt = "hot_in" in leaves
-        like_now = {k: ckpt.ArraySpec(tuple(v.shape),
-                                      str(v.dtype).removeprefix("torch."))
-                    for k, v in self.state.params().items()}
+        like_now = self._full_like()
         same_format = set(leaves) == set(like_now) and all(
             tuple(leaves[k]["shape"]) == like_now[k].shape
             and leaves[k]["dtype"] == like_now[k].dtype for k in like_now)
@@ -603,15 +690,17 @@ class TrainSession:
                            == self.placement)
         st = self.state
         if same_format:
-            tree, extra = ckpt.restore(self.ckpt_dir, like_now, step=step,
-                                       device=self.device)
-            if self.placement is not None:
-                st.w_in, st.w_out = tree["hot_in"], tree["hot_out"]
-                st.cold_in, st.cold_out = tree["cold_in"], tree["cold_out"]
-                st.scale_in = tree.get("scale_in")
-                st.scale_out = tree.get("scale_out")
-            else:
-                st.w_in, st.w_out = tree["w_in"], tree["w_out"]
+            tree, extra = ckpt.restore(self.ckpt_dir, like_now, step=step)
+            if self.placement is None:
+                st.w_in, st.w_out = (self._put(tree[k], None)
+                                     for k in ("w_in", "w_out"))
+                return extra
+            rows = _stripe(self.placement, self.mesh)
+            st.w_in, st.w_out = (self._put(tree[k], None)
+                                 for k in ("hot_in", "hot_out"))
+            st.cold_in, st.cold_out, st.scale_in, st.scale_out = (
+                self._put(tree.get(k), rows)
+                for k in ("cold_in", "cold_out", "scale_in", "scale_out"))
             return extra
         like_ckpt = {k: ckpt.ArraySpec(tuple(m["shape"]), m["dtype"])
                      for k, m in leaves.items()}
@@ -645,11 +734,20 @@ class TrainSession:
                 f"checkpoint tables are {full_in.shape}, session expects "
                 f"{want} (vocabulary or dim mismatch — wrong ckpt_dir?)")
         new = _encoded_state(full_in, full_out, self.device, self.placement,
-                             self.spec)
+                             self.spec, self.mesh)
         for name in ("w_in", "w_out", "cold_in", "cold_out", "scale_in",
                      "scale_out"):
             setattr(st, name, getattr(new, name))
         return extra
+
+    def _put(self, leaf, rows: Optional[slice]) -> Optional[torch.Tensor]:
+        """A restored host leaf (numpy, or a bf16 torch tensor) as a new
+        tensor on the session's device; ``rows``: only those rows."""
+        if leaf is None:
+            return None
+        if rows is not None:
+            leaf = leaf[rows]
+        return torch.as_tensor(leaf).to(self.device, copy=True)
 
     def restore_latest(self) -> Optional[int]:
         """Roll the session back to the newest *readable* checkpoint.
@@ -659,7 +757,28 @@ class TrainSession:
         device — keyed randomness makes replay-from-scratch bit-exact too.
         Returns the restored step, or None when starting over. Sets the
         pipeline fast-forward so the next :meth:`stream` resumes mid-epoch
-        exactly where the checkpoint left off."""
+        exactly where the checkpoint left off. Under a mesh every rank
+        calls it; rank 0 reads (and quarantines) first, the others then
+        find the same newest readable step."""
+        with self._rank0_first():
+            return self._restore_latest()
+
+    @contextlib.contextmanager
+    def _rank0_first(self):
+        """Run the body on rank 0, then on the other ranks (one barrier on
+        every rank): only rank 0 quarantines a corrupt checkpoint."""
+        if self.mesh is None or self.mesh.size == 1:
+            yield
+            return
+        if self.mesh.rank != 0:
+            self.mesh.barrier()
+        try:
+            yield
+        finally:
+            if self.mesh.rank == 0:
+                self.mesh.barrier()
+
+    def _restore_latest(self) -> Optional[int]:
         from repro_torch.train import checkpoint as ckpt
         while True:
             step = (ckpt.latest_step(self.ckpt_dir) if self.ckpt_dir
@@ -671,7 +790,8 @@ class TrainSession:
                     getattr(self.pipeline, "table_rows",
                             self.pipeline.vocab.size),
                     self.cfg, self.cfg.seed, self.device,
-                    placement=self.placement, spec=self.spec)
+                    placement=self.placement, spec=self.spec,
+                    mesh=self.mesh)
                 self._resume_skip = 0
                 self.resumed_step = None
                 return None
@@ -692,9 +812,10 @@ class TrainSession:
 
     def _maybe_resume(self) -> None:
         from repro_torch.train import checkpoint as ckpt
-        if ckpt.latest_step(self.ckpt_dir) is None:
-            return   # fresh start: keep the init-state tables as built
-        self.restore_latest()
+        with self._rank0_first():
+            if ckpt.latest_step(self.ckpt_dir) is not None:
+                self._restore_latest()
+            # else a fresh start: keep the init-state tables as built
 
     # -- inference helpers ----------------------------------------------------
     def embeddings(self) -> np.ndarray:
@@ -702,7 +823,8 @@ class TrainSession:
         storage decodes here; numpy has no bf16); vocab-sharded sessions
         reassemble it from the hot head and the cold tail (a full ``(V,
         d)`` copy on the host: fine for examples and tests, wrong for
-        serving, which takes :meth:`embeddings_sharded`)."""
+        serving, which takes :meth:`embeddings_sharded`). A collective
+        that every rank of a sharded mesh calls."""
         hot, cold, placement = self.embeddings_sharded()
         hot = hot.detach().cpu().numpy()
         if placement is None:
@@ -715,14 +837,19 @@ class TrainSession:
         Returns ``(hot, cold, placement)``: for a vocab-sharded session the
         hot head ``(hot, d)``, the shard-major cold table ``(cold_pad, d)``
         (device tensors, decoded from their storage dtypes; an f32 table
-        is returned as trained) and the ``VocabPlacement`` describing the
-        layout; for a replicated session ``(w_in, None, None)``."""
+        is returned as trained; on a mesh of several ranks the stripes
+        all-gathered, a collective every rank calls) and the
+        ``VocabPlacement`` describing the layout; for a replicated session
+        ``(w_in, None, None)``."""
         st = self.state
         hot = quant.decode(st.w_in, None, self.spec.hot_dtype)
         if self.placement is None:
             return hot, None, None
-        return (hot, quant.decode(st.cold_in, st.scale_in,
-                                  self.spec.cold_dtype), self.placement)
+        cold = quant.decode(st.cold_in, st.scale_in, self.spec.cold_dtype)
+        if self._split_across_ranks():
+            from repro_torch.distributed import collectives as coll
+            cold = coll.all_gather(cold, self.mesh).reshape(-1, cold.shape[1])
+        return hot, cold, self.placement
 
     def nearest(self, word_id: int, k: int = 5) -> np.ndarray:
         e = self.embeddings()

@@ -82,6 +82,21 @@ def first_seen_unique(flat: np.ndarray) -> np.ndarray:
     return flat[np.sort(idx)]
 
 
+def rank_rows(n_rows: int, mesh) -> slice:
+    """This rank's block of a batch's ``n_rows`` sentences: rows ``[r·S/n,
+    (r+1)·S/n)`` of rank ``r`` of ``mesh`` (every row without a mesh), as
+    the reference's ``P("data")`` sharding cuts them."""
+    if mesh is None:
+        return slice(0, n_rows)
+    n = mesh.size
+    if n_rows % n != 0:
+        raise ValueError(
+            f"batch of {n_rows} sentences does not shard over {n} devices; "
+            f"set cfg.sentences_per_batch to a multiple of the data axis")
+    per = n_rows // n
+    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
 def encode_block(vocab: Vocab, sentences: Sequence[Sequence],
                  subsample_t: float, rng: np.random.Generator
                  ) -> List[np.ndarray]:
@@ -217,14 +232,15 @@ class Batch:
     epoch: int = 0
     index: int = 0
 
-    def step_inputs(self, lr, device, put=None) -> "StepInputs":
+    def step_inputs(self, lr, device, put=None, mesh=None) -> "StepInputs":
         """Lift this host batch onto ``device`` as the engine API's
         ``repro_torch.kernels.registry.StepInputs``, tile plan included
-        (``put``: see ``StepInputs.from_batch``)."""
+        (``put``: see ``StepInputs.from_batch``); under a ``mesh`` only
+        this rank's block of sentences (:func:`rank_rows`)."""
         # local import: keeps this module torch-free until a step is built
         # (process prefetch workers import it and never torch)
         from repro_torch.kernels.registry import StepInputs
-        return StepInputs.from_batch(self, lr, device, put=put)
+        return StepInputs.from_batch(self, lr, device, put=put, mesh=mesh)
 
 
 @dataclasses.dataclass

@@ -4,10 +4,9 @@ The port's counterpart of ``repro.distributed.vocab_placement`` (numpy
 only): placements and exchange plans are bit-identical to the
 reference's for the same batch. Only the device lift
 (:meth:`VocabExchange.step_inputs`) differs — it builds the port's torch
-``StepInputs`` on an explicit device. The device step that consumes the
-plans is ``repro_torch.kernels.ops``; it runs one shard until the
-data-parallel slice brings a process group (ROADMAP item 7), while the
-plans here are computed for any shard count.
+``StepInputs`` on an explicit device, for one rank of a mesh. The device
+step that consumes the plans is ``repro_torch.kernels.ops``, one process
+per shard.
 
 FULL-W2V's reuse hierarchy keeps hot rows near the compute (registers /
 shared memory in the paper; ring buffer / tile dedup here) and spills cold
@@ -301,36 +300,49 @@ class VocabExchange:
         row = self.row_bytes(dim, dtype) if dtype else dim * itemsize
         return n * self.bucket_capacity * row * 2 * 2
 
-    def step_inputs(self, lr, device, put=None) -> "Any":
+    def step_inputs(self, lr, device, put=None, mesh=None) -> "Any":
         """Lift onto ``device`` as a vocab-sharded ``StepInputs`` (the
-        port's ``repro_torch.kernels.registry.StepInputs``). ``put``
-        (numpy array -> device tensor) replaces the blocking copy, e.g.
-        with the trainer's pinned, non_blocking one."""
+        port's ``repro_torch.kernels.registry.StepInputs``). Under a
+        ``mesh`` (``repro_torch.launch.mesh.DataMesh``, one rank per
+        shard) only this rank's part: its block of sentences
+        (``batching.rank_rows``) and its ``(1, ...)`` row of ``cold_ids``
+        and ``bucket_*``; without one every row. ``put`` (numpy array ->
+        device tensor) replaces the blocking copy, e.g. with the trainer's
+        pinned, non_blocking one."""
         # local import: keeps this module torch-free until a step is built
         # (process prefetch workers import it and never torch)
         import torch
 
+        from repro_torch.data.batching import rank_rows
         from repro_torch.kernels.registry import StepInputs
         if self.docs is not None or self.bags is not None:
             raise NotImplementedError(
                 "doc2vec/subword exchange plans (docs, bags) arrive with a "
                 "later slice of the torch port")
+        n = self.placement.n_shards
+        if mesh is not None and mesh.size != n:
+            raise ValueError(f"an exchange planned for {n} shards lifts on "
+                             f"a mesh of {n} ranks, got {mesh.size}")
+        rows = rank_rows(self.tokens.shape[0], mesh)
+        me = slice(0, n) if mesh is None else slice(mesh.rank,
+                                                    mesh.rank + 1)
         if put is None:
             def put(a):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
         kw = {}
         if self.plan_uniq is not None:
-            kw = dict(plan_uniq=put(self.plan_uniq),
-                      plan_scatter=put(self.plan_scatter),
-                      plan_ucount=put(self.plan_ucount),
-                      plan_strict=put(self.plan_strict))
-        return StepInputs(tokens=put(self.tokens), negs=put(self.negs),
-                          lengths=put(self.lengths),
+            kw = dict(plan_uniq=put(self.plan_uniq[rows]),
+                      plan_scatter=put(self.plan_scatter[rows]),
+                      plan_ucount=put(self.plan_ucount[rows]),
+                      plan_strict=put(self.plan_strict[rows]))
+        return StepInputs(tokens=put(self.tokens[rows]),
+                          negs=put(self.negs[rows]),
+                          lengths=put(self.lengths[rows]),
                           lr=torch.tensor(float(lr), dtype=torch.float32),
-                          cold_ids=put(self.cold_ids),
-                          bucket_ids=put(self.bucket_ids),
-                          bucket_pos=put(self.bucket_pos), **kw)
+                          cold_ids=put(self.cold_ids[me]),
+                          bucket_ids=put(self.bucket_ids[me]),
+                          bucket_pos=put(self.bucket_pos[me]), **kw)
 
 
 def plan_exchange(batch, placement: VocabPlacement) -> VocabExchange:

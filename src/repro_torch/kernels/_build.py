@@ -10,8 +10,10 @@ needs ``nvcc`` (on ``PATH``, or under ``$CUDA_HOME/bin``, or
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import fcntl
 import functools
 import hashlib
 import os
@@ -84,13 +86,37 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fullw2v_error_string.restype = ctypes.c_char_p
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """One nvcc build at a time across processes (the ranks of a mesh load
+    the library together): an advisory lock on a file in the build
+    directory, which the kernel drops when its holder exits."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> Library:
     """Build (when the sources changed) and load the kernel library."""
     out = BUILD_DIR / f"libfullw2v_{source_hash()}.so"
+    with _build_lock():
+        built, seconds, log = _build(out)
+    lib = ctypes.CDLL(str(out))
+    _bind(lib)
+    return Library(lib=lib, path=str(out), built=built, seconds=seconds,
+                   log=log)
+
+
+def _build(out: pathlib.Path):
+    """Compile the library into ``out`` unless it exists; returns
+    ``(built, seconds, log)``."""
     built, seconds, log = False, 0.0, ""
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                *(str(CSRC / s) for s in SOURCES)]
@@ -104,7 +130,4 @@ def load() -> Library:
         os.replace(tmp, out)       # atomic: concurrent builders never see
         built = True               # a half-written library
         (BUILD_DIR / f"{out.stem}.log").write_text(log)
-    lib = ctypes.CDLL(str(out))
-    _bind(lib)
-    return Library(lib=lib, path=str(out), built=built, seconds=seconds,
-                   log=log)
+    return built, seconds, log

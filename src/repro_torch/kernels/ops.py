@@ -14,9 +14,15 @@ the one dispatch function :func:`step`. Registered backends:
   ``update_fused`` is the split-table kernel K4
   (``fullw2v_cuda_tiled_fused``), which a vocab-sharded step runs.
 
-:func:`step` runs the single-replica step and the vocab-sharded step on
-one shard (DESIGN.md §8: replicated hot head, cold tail, row exchange
-planned on the host by ``repro_torch.distributed.vocab_placement``).
+:func:`step` runs the single-replica step, the Hogwild data-parallel
+step (the reference's ``_jitted_dp_update``: each rank updates its
+replica on its block of the batch, then the replicas average) and the
+vocab-sharded step over any number of shards (DESIGN.md §8: replicated hot
+head, cold tail striped over the ranks, row exchange planned on the host
+by ``repro_torch.distributed.vocab_placement``). A mesh
+(``repro_torch.launch.mesh.DataMesh``) is one rank of a
+``torch.distributed`` group; the collectives are
+``repro_torch.distributed.collectives``.
 
 Mixed-precision storage (DESIGN.md §11): tables stored in ``bfloat16`` or
 ``int8`` decode to f32 working tensors, the unchanged f32 backend updates
@@ -26,8 +32,7 @@ exact exchange the cold rows travel in storage precision and the
 write-back travels round-to-nearest quantized, as in the reference.
 Backends that cannot take a storage dtype (the CUDA kernels and int8) run
 it under the f32 master copy (``TableSpec.master_copy``): decode every
-table, the f32 step, re-encode every row. Data parallelism and more than
-one shard raise until their slices land.
+table, the f32 step, re-encode every row.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.w2v import W2VConfig, resolve_gemm_windows
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import quant
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import registry
@@ -145,12 +151,16 @@ def step(tables: Tables, step: StepInputs, cfg: W2VConfig,
     tables in place (the reference's jit donates them); returns
     ``tables``.
 
-    * ``tables.placement`` set → the vocab-sharded step (one shard): the
-      step must carry an exchange plan (``step.cold_ids``/``bucket_*``
-      from ``repro_torch.distributed.vocab_placement.plan_exchange``);
-      ``tables.spec.exchange`` picks the request-exact or the dense
-      exchange.
-    * otherwise → the single-replica step on the full tables.
+    * ``tables.placement`` set → the vocab-sharded step: the step must
+      carry an exchange plan (``step.cold_ids``/``bucket_*`` from
+      ``repro_torch.distributed.vocab_placement.plan_exchange``, lifted
+      for this rank); ``tables.spec.exchange`` picks the request-exact or
+      the dense exchange. A placement over n > 1 shards needs a ``mesh``
+      of n ranks; ``tables`` then hold this rank's cold stripe.
+    * no placement, ``mesh`` given → Hogwild data parallelism: ``step``
+      holds this rank's block of the batch, the backend updates this
+      rank's replica, and the replicas average (``collectives.pmean``).
+    * neither → the single-replica step on the full tables.
 
     ``step.has_plan`` selects the window-tiled kernel family in both cases
     (bit-identical to the sequential one at T=1). The backend resolves
@@ -160,10 +170,6 @@ def step(tables: Tables, step: StepInputs, cfg: W2VConfig,
     ``spec.master_copy`` asks for the f32 master copy.
     """
     tables.check_runnable()
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel (mesh) steps arrive with a later slice of the "
-            "torch port")
     spec = tables.spec
     if spec.is_mixed and step.round_key is None:
         raise ValueError(
@@ -182,7 +188,8 @@ def step(tables: Tables, step: StepInputs, cfg: W2VConfig,
         be = registry.resolve(backend, tiled=step.has_plan, vocab_shard=True,
                               dtypes=dtypes, platform=platform)
         _VocabShardedRun(be.name, static, tables.placement,
-                         exchange=spec.exchange, spec=spec)(tables, step)
+                         exchange=spec.exchange, spec=spec,
+                         mesh=mesh)(tables, step)
         return tables
     if step.has_vocab_shard:
         raise ValueError(
@@ -195,56 +202,21 @@ def step(tables: Tables, step: StepInputs, cfg: W2VConfig,
     dt = spec.hot_dtype
     if dt == "float32":
         be.update(tables.w_in, tables.w_out, step, static)
+        for w in (tables.w_in, tables.w_out):
+            w.copy_(coll.pmean(w, mesh))      # identity without a mesh
         return tables
-    # decode → the unchanged f32 update → keyed stochastic re-encode;
-    # values exact in the storage dtype round-trip, so untouched rows stay
+    # decode → the unchanged f32 update → (the replicas' mean) → keyed
+    # stochastic re-encode: the key is the same on every rank, so every
+    # rank stores the same bytes; values exact in the storage dtype
+    # round-trip, so untouched rows stay
     w_in = quant.decode(tables.w_in, None, dt)
     w_out = quant.decode(tables.w_out, None, dt)
     be.update(w_in, w_out, step, static)
     for store, new, tag in ((tables.w_in, w_in, quant.TAG_FULL_IN),
                             (tables.w_out, w_out, quant.TAG_FULL_OUT)):
-        store.copy_(quant.encode_stochastic(new, dt, step.round_key, tag)[0])
+        store.copy_(quant.encode_stochastic(coll.pmean(new, mesh), dt,
+                                            step.round_key, tag)[0])
     return tables
-
-
-# ---------------------------------------------------------------------------
-# Collectives over the vocab shards. One process holds one shard until the
-# data-parallel slice (ROADMAP item 7) brings a process group; at one shard
-# each is an exact identity, at more it raises.
-# ---------------------------------------------------------------------------
-
-def _one_shard(n: int, what: str) -> None:
-    if n != 1:
-        raise NotImplementedError(
-            f"{what} over {n} vocab shards needs a process group, which "
-            f"arrives with the data-parallel slice of the torch port "
-            f"(ROADMAP item 7); one shard runs today")
-
-
-def all_gather(x: torch.Tensor, n: int) -> torch.Tensor:
-    """Every shard's ``x`` stacked on a new leading axis: ``(n, ...)``."""
-    _one_shard(n, "all_gather")
-    return x.unsqueeze(0)
-
-
-def all_to_all(x: torch.Tensor, n: int) -> torch.Tensor:
-    """Block ``x[o]`` goes to shard ``o``; returns the blocks addressed
-    to this shard, ``(n, ...)`` by sender."""
-    _one_shard(n, "all_to_all")
-    return x
-
-
-def psum_scatter(x: torch.Tensor, n: int) -> torch.Tensor:
-    """Sum ``(n, ...)`` over shards and keep this shard's block
-    ``(1, ...)`` (the reference's tiled ``psum_scatter`` on axis 0)."""
-    _one_shard(n, "psum_scatter")
-    return x
-
-
-def pmean(x: torch.Tensor, n: int) -> torch.Tensor:
-    """Mean of ``x`` over shards."""
-    _one_shard(n, "pmean")
-    return x
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +233,10 @@ class _VocabShardedRun:
     ``run(tables, step)`` takes the replicated ``(hot, d)`` head tables,
     this shard's ``(cold_per_shard, d)`` block of the striped cold tail
     (and its int8 scales) and a ``StepInputs`` built by
-    ``plan_exchange``. One step does, on the device:
+    ``plan_exchange`` and lifted for this rank (its block of sentences,
+    its ``(1, ...)`` rows of ``cold_ids``/``bucket_*``). Shard ``r`` is
+    rank ``r`` of ``mesh`` (one shard: no mesh). One step does, on the
+    device:
 
     1. **Gather** the cold rows the batch requests into a compact f32
        ``(R, d)`` block in request order. ``exchange="exact"``: route the
@@ -278,8 +253,9 @@ class _VocabShardedRun:
     3. **Write back**: ``pmean`` the hot head (a bf16 head then stores with
        keyed stochastic rounding); route the updated request rows to their
        owners (on the exact path of a sub-f32 tail quantized
-       round-to-nearest for the transport), scatter-add them and average
-       each touched row over all ``n`` replicas (``hogwild_mean``); a
+       round-to-nearest for the transport), add them up sender by sender
+       in rank order and average each touched row over all ``n``
+       replicas (``hogwild_mean``); a
        sub-f32 tail re-encodes the touched rows with keyed stochastic
        rounding (the key folded with the tag and then this shard's index)
        and keeps the untouched rows' exact storage bytes.
@@ -298,7 +274,7 @@ class _VocabShardedRun:
 
     def __init__(self, backend: str, static: KernelStatic, placement,
                  exchange: str = "exact",
-                 spec: TableSpec = TableSpec(vocab_shard=True)):
+                 spec: TableSpec = TableSpec(vocab_shard=True), mesh=None):
         be = registry.get(backend)
         if not be.supports_vocab_shard:
             raise ValueError(
@@ -307,12 +283,18 @@ class _VocabShardedRun:
         if exchange not in ("exact", "dense"):
             raise ValueError(f"exchange must be 'exact' or 'dense', "
                              f"got {exchange!r}")
-        _one_shard(placement.n_shards, "the vocab-sharded step")
+        ranks = 1 if mesh is None else mesh.size
+        if placement.n_shards != ranks:
+            raise ValueError(
+                f"a placement over {placement.n_shards} vocab shards runs "
+                f"on a mesh of {placement.n_shards} ranks, one shard each; "
+                f"got {'no mesh' if mesh is None else f'{ranks} ranks'}")
         self.be, self.static, self.exchange = be, static, exchange
+        self.mesh = mesh
         self.hot = placement.hot
         self.cps = placement.cold_per_shard
         self.n = placement.n_shards
-        self.me = 0      # this process's shard (one process per shard)
+        self.me = 0 if mesh is None else mesh.rank   # this rank's shard
         self.hot_dt, self.cold_dt = spec.hot_dtype, spec.cold_dtype
         self.mixed = spec.is_mixed
         self.native = all(d in be.supports_dtypes for d in spec.dtypes)
@@ -332,8 +314,8 @@ class _VocabShardedRun:
         got_in = self.gather(route, cold_in)
         got_out = self.gather(route, cold_out)
         self.compute(hot_in, hot_out, got_in, got_out, step)
-        hot_in.copy_(pmean(hot_in, self.n))
-        hot_out.copy_(pmean(hot_out, self.n))
+        hot_in.copy_(coll.pmean(hot_in, self.mesh))
+        hot_out.copy_(coll.pmean(hot_out, self.mesh))
         self.write_back(route, cold_in, got_in)
         self.write_back(route, cold_out, got_out)
 
@@ -362,8 +344,8 @@ class _VocabShardedRun:
         hot_in = quant.decode(t.w_in, None, self.hot_dt)
         hot_out = quant.decode(t.w_out, None, self.hot_dt)
         self.compute(hot_in, hot_out, got_in, got_out, step)
-        hot_in.copy_(pmean(hot_in, self.n))
-        hot_out.copy_(pmean(hot_out, self.n))
+        hot_in.copy_(coll.pmean(hot_in, self.mesh))
+        hot_out.copy_(coll.pmean(hot_out, self.mesh))
         self.store_hot(t, hot_in, hot_out, step.round_key)
         touched = route["kcnt"] > 0
         quantize = self.exchange == "exact"
@@ -396,12 +378,17 @@ class _VocabShardedRun:
         rows this shard serves, from which local rows, into which slots,
         and how many replicas touch each local row (``kcnt``)."""
         n, hot, cps = self.n, self.hot, self.cps
+        if step.cold_ids.shape[0] != 1:
+            raise ValueError(
+                f"the step carries the exchange plans of "
+                f"{step.cold_ids.shape[0]} requesters; lift this rank's "
+                f"row (VocabExchange.step_inputs(..., mesh=mesh))")
         if self.exchange == "exact":
-            req = step.bucket_ids[self.me]              # (n, C) by owner
-            pos = step.bucket_pos[self.me]              # (n, C), pad = R
+            req = step.bucket_ids[0]                    # (n, C) by owner
+            pos = step.bucket_pos[0]                    # (n, C), pad = R
             # swap requester<->owner axes: got_req[s] = the bucket shard s
             # addressed to me — the only rows I must serve
-            got_req = all_to_all(req, n)
+            got_req = coll.all_to_all(req, self.mesh)
             serve = got_req >= 0
             lrow = torch.where(serve, torch.div(got_req - hot, n,
                                                 rounding_mode="floor"), 0)
@@ -409,7 +396,7 @@ class _VocabShardedRun:
             r = dict(serve=serve, lrow=lrow, pos=pos, reqv=reqv,
                      pos_c=torch.where(reqv, pos, 0))
         else:
-            ids_all = all_gather(step.cold_ids[self.me], n)       # (n, R)
+            ids_all = coll.all_gather(step.cold_ids[0], self.mesh)  # (n, R)
             valid = ids_all >= 0
             ci = torch.where(valid, ids_all - hot, 0)
             serve = valid & (torch.remainder(ci, n) == self.me)
@@ -417,12 +404,26 @@ class _VocabShardedRun:
                                0)
             r = dict(serve=serve, lrow=lrow)
         r["width"] = step.cold_ids.shape[-1]                      # R
-        tgt = torch.where(r["serve"], r["lrow"], cps).reshape(-1)
-        r["tgt"] = tgt.long()                                     # cps: drop
-        kcnt = torch.zeros(cps + 1, dtype=torch.float32, device=tgt.device)
-        kcnt.index_add_(0, r["tgt"], r["serve"].reshape(-1).float())
+        # (n, slots) by sender; pads and rows served elsewhere land in the
+        # scratch row cps, which is dropped
+        r["tgt"] = torch.where(r["serve"], r["lrow"], cps).long()
+        kcnt = torch.zeros(cps + 1, dtype=torch.float32,
+                           device=r["tgt"].device)
+        self._by_sender(kcnt, r["tgt"], r["serve"].float())
         r["kcnt"] = kcnt[:cps]
         return r
+
+    @staticmethod
+    def _by_sender(acc: torch.Tensor, tgt: torch.Tensor,
+                   rows: torch.Tensor) -> None:
+        """``acc[tgt[s]] += rows[s]`` for each sender ``s`` in rank order,
+        one ``index_add_`` per sender: a row gets up to one contribution
+        from each sender (a requester's list holds distinct rows), so each
+        launch adds to distinct rows and the sum runs in rank order, the
+        same bits on every run (CUDA's ``index_add_`` adds repeated
+        indices with atomics, in no fixed order)."""
+        for s in range(tgt.shape[0]):
+            acc.index_add_(0, tgt[s], rows[s])
 
     def gather(self, route: dict, cold: torch.Tensor,
                scale: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -439,14 +440,14 @@ class _VocabShardedRun:
         if self.exchange == "dense":
             rows = quant.decode(rows, rscale, self.cold_dt)
             served = torch.where(keep, rows, 0.0).view(*serve.shape, d)
-            return psum_scatter(served, self.n)[0]
+            return coll.psum_scatter(served, self.mesh)[0]
         zero = 0 if rows.dtype == torch.int8 else 0.0
         sent = torch.where(keep, rows, zero).view(*serve.shape, d)
-        vals = all_to_all(sent, self.n)
+        vals = coll.all_to_all(sent, self.mesh)
         if rscale is not None:
             sent_s = torch.where(serve.reshape(-1), rscale, 0.0)
-            vals = quant.int8_decode(vals, all_to_all(sent_s.view(
-                serve.shape), self.n))
+            vals = quant.int8_decode(vals, coll.all_to_all(sent_s.view(
+                serve.shape), self.mesh))
         else:
             vals = vals.to(torch.float32)
         # vals[o, c] is the value of req[o, c]; land it at its first-seen
@@ -460,14 +461,14 @@ class _VocabShardedRun:
     def contributions(self, route: dict, new_rows: torch.Tensor,
                       quantize: bool = False) -> torch.Tensor:
         """The updated request rows as their owners receive them, one row
-        per slot of ``route["tgt"]``. ``quantize``: the exact path's
-        transport of a sub-f32 tail, round-to-nearest (an int8 row with
-        its own scale of the values sent, or bf16)."""
-        n, d = self.n, new_rows.shape[-1]
+        per slot of ``route["tgt"]``: ``(n, slots, d)`` by sender.
+        ``quantize``: the exact path's transport of a sub-f32 tail,
+        round-to-nearest (an int8 row with its own scale of the values
+        sent, or bf16)."""
+        mesh, d = self.mesh, new_rows.shape[-1]
         if self.exchange == "dense":
-            upd_all = all_gather(new_rows, n)                     # (n, R, d)
-            return torch.where(route["serve"][..., None], upd_all,
-                               0.0).reshape(-1, d)
+            upd_all = coll.all_gather(new_rows, mesh)             # (n, R, d)
+            return torch.where(route["serve"][..., None], upd_all, 0.0)
         reqv = route["reqv"]
         upd = new_rows.index_select(0, route["pos_c"].reshape(-1).long())
         upd = torch.where(reqv.reshape(-1, 1), upd, 0.0)
@@ -476,14 +477,15 @@ class _VocabShardedRun:
         if quantize and self.cold_dt == "int8":
             ts = quant.int8_scale(upd)
             tq, _ = quant.int8_nearest(upd, ts)
-            back = quant.int8_decode(all_to_all(tq.view(*reqv.shape, d), n),
-                                     all_to_all(ts.view(reqv.shape), n))
+            back = quant.int8_decode(
+                coll.all_to_all(tq.view(*reqv.shape, d), mesh),
+                coll.all_to_all(ts.view(reqv.shape), mesh))
         elif quantize and self.cold_dt == "bfloat16":
-            back = all_to_all(quant.bf16_nearest(upd).view(*reqv.shape, d),
-                              n).to(torch.float32)
+            back = coll.all_to_all(quant.bf16_nearest(upd).view(
+                *reqv.shape, d), mesh).to(torch.float32)
         else:
-            back = all_to_all(upd.view(*reqv.shape, d), n)
-        return back.reshape(-1, d)
+            back = coll.all_to_all(upd.view(*reqv.shape, d), mesh)
+        return back
 
     def merge(self, route: dict, cold: torch.Tensor, new_rows: torch.Tensor,
               quantize: bool = False) -> torch.Tensor:
@@ -491,8 +493,8 @@ class _VocabShardedRun:
         updated request rows (a new tensor)."""
         d = cold.shape[-1]
         acc = cold.new_zeros((self.cps + 1, d))
-        acc.index_add_(0, route["tgt"],
-                       self.contributions(route, new_rows, quantize))
+        self._by_sender(acc, route["tgt"],
+                        self.contributions(route, new_rows, quantize))
         return self.hogwild_mean(cold, acc[:self.cps], route["kcnt"])
 
     def write_back(self, route: dict, cold: torch.Tensor,

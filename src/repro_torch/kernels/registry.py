@@ -24,9 +24,8 @@ storage dtypes, frontends) so that resolution accepts and rejects the same
 combinations. The plain versions take every storage dtype; the CUDA
 kernels take ``float32`` and ``bfloat16``, as the reference's Pallas
 kernels do, so an int8 cold tail on the GPU runs under the f32 master
-copy (``master=1``). The paths behind the capabilities the port does not
-run yet (data parallelism, more than one vocab shard, frontends) raise in
-``kernels.ops.step``.
+copy (``master=1``). Frontend steps, which the port does not run yet,
+raise where they are built (``StepInputs.from_batch``).
 
 The implementations register themselves from ``repro_torch.kernels.ops``
 at import time; every registry query triggers that import lazily.
@@ -95,24 +94,32 @@ class StepInputs:
 
     @classmethod
     def from_batch(cls, batch: "Batch", lr, device,
-                   put: Optional[Callable] = None) -> "StepInputs":
+                   put: Optional[Callable] = None,
+                   mesh=None) -> "StepInputs":
         """Lift a host :class:`~repro_torch.data.batching.Batch` (numpy)
         onto ``device``, carrying its tile plan along when one is
-        attached. ``put`` (numpy array -> device tensor) replaces the
-        blocking copy, e.g. with the trainer's pinned, non_blocking one."""
+        attached; under a ``mesh`` (``repro_torch.launch.mesh.DataMesh``)
+        only this rank's block of sentences. ``put`` (numpy array ->
+        device tensor) replaces the blocking copy, e.g. with the trainer's
+        pinned, non_blocking one."""
+        from repro_torch.data.batching import rank_rows
         if getattr(batch, "docs", None) is not None or \
                 getattr(batch, "bags", None) is not None:
             raise NotImplementedError(
                 "doc2vec/subword batches (Batch.docs, Batch.bags) arrive "
                 "with a later slice of the torch port")
-        put = put or (lambda a: torch.from_numpy(a).to(device))
+        rows = rank_rows(batch.tokens.shape[0], mesh)
+        put = put or (lambda a: torch.from_numpy(
+            np.ascontiguousarray(a)).to(device))
         kw = {}
         if batch.plan is not None:
             p = batch.plan
-            kw = dict(plan_uniq=put(p.uniq), plan_scatter=put(p.scatter),
-                      plan_ucount=put(p.ucount), plan_strict=put(p.strict))
-        return cls(tokens=put(batch.tokens), negs=put(batch.negs),
-                   lengths=put(batch.lengths),
+            kw = dict(plan_uniq=put(p.uniq[rows]),
+                      plan_scatter=put(p.scatter[rows]),
+                      plan_ucount=put(p.ucount[rows]),
+                      plan_strict=put(p.strict[rows]))
+        return cls(tokens=put(batch.tokens[rows]), negs=put(batch.negs[rows]),
+                   lengths=put(batch.lengths[rows]),
                    lr=torch.tensor(float(lr), dtype=torch.float32), **kw)
 
 
@@ -149,6 +156,7 @@ class KernelBackend:
     update: UpdateFn
     description: str = ""
     needs_plan: bool = False          # consumes a host tile schedule
+    supports_mesh: bool = True        # runs on a rank's block under a mesh
     supports_pipeline: bool = False   # §3.1 prefetch (window t+1 overlap)
     supports_tiling: bool = False     # has a window-tiled counterpart
     supports_vocab_shard: bool = False  # runs on a vocab-sharded working

@@ -3,8 +3,8 @@
 The port's counterpart of ``repro.kernels.tables``. ``TableSpec`` and the
 ``--tables`` grammar (:func:`parse`) are copied verbatim, so a spec string
 means the same in both packages. The port runs every storage dtype,
-replicated or vocab-sharded on one shard; :meth:`Tables.check_runnable`
-raises for more than one shard until the data-parallel slices land.
+replicated or vocab-sharded over any number of shards, one per rank;
+:meth:`Tables.check_runnable` holds a rank's tables to the spec.
 """
 from __future__ import annotations
 
@@ -183,9 +183,10 @@ class Tables:
     the replicated hot head there instead and the striped ``(cold_pad,
     d)`` tail in ``cold_in``/``cold_out`` (stored in ``spec.cold_dtype``),
     and for an int8 tail its per-row f32 scales in ``scale_in``/
-    ``scale_out`` (``(cold_pad,)``, striped like the cold rows);
-    ``placement`` (a ``repro_torch.distributed.vocab_placement
-    .VocabPlacement``) describes the split."""
+    ``scale_out``, striped like the cold rows); ``placement`` (a
+    ``repro_torch.distributed.vocab_placement.VocabPlacement``) describes
+    the split. A rank of a sharded mesh holds its stripe of the tail,
+    ``placement.cold_per_shard`` rows (one shard: all ``cold_pad``)."""
     w_in: torch.Tensor
     w_out: torch.Tensor
     cold_in: Optional[torch.Tensor] = None
@@ -197,15 +198,9 @@ class Tables:
 
     def check_runnable(self) -> None:
         """Raise unless the port can run ``spec``: tables in the spec's
-        storage dtypes, replicated or vocab-sharded on one shard with
-        their cold tail (and int8 scales) and placement present."""
-        n = getattr(self.placement, "n_shards", 1)
-        if n > 1:
-            raise NotImplementedError(
-                f"a placement over {n} vocab shards arrives with a later "
-                f"slice of the torch port (ROADMAP item 8, on the process "
-                f"group of the data-parallel slice, item 7); one shard "
-                f"runs here")
+        storage dtypes, replicated, or vocab-sharded with the placement
+        and this shard's stripe of the cold tail (and its int8 scales):
+        ``placement.cold_per_shard`` rows."""
         sharded = self.placement is not None
         has_cold = self.cold_in is not None and self.cold_out is not None
         if self.spec.vocab_shard != sharded or has_cold != sharded:
@@ -221,6 +216,15 @@ class Tables:
                 f"{'needs' if self.spec.needs_scales else 'takes no'} "
                 f"per-row int8 scales, but the tables carry "
                 f"{'them' if has_scales else 'none'}")
+        if sharded:
+            cps = self.placement.cold_per_shard
+            for name in ("cold_in", "cold_out", "scale_in", "scale_out"):
+                t = getattr(self, name)
+                if t is not None and t.shape[0] != cps:
+                    raise ValueError(
+                        f"{name} has {t.shape[0]} rows but a shard of a "
+                        f"placement over {self.placement.n_shards} holds "
+                        f"cold_per_shard={cps}")
         want = {"w_in": self.spec.hot_dtype, "w_out": self.spec.hot_dtype,
                 "cold_in": self.spec.cold_dtype,
                 "cold_out": self.spec.cold_dtype,

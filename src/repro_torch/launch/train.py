@@ -6,19 +6,25 @@ defaults, on the GPU unless ``--device cpu`` is given:
   PYTHONPATH=src python -m repro_torch.launch.train w2v --vocab 65536 \\
       --sentences 30000 --sentences-per-batch 10000 --tile-windows 8
 
-``--vocab-shard`` (one shard) and ``--hot-vocab-frac`` train with a
-vocab-sharded table; ``--tables`` takes any storage spec on at most one
-shard (``hot=bf16``, ``hot=bf16,cold=int8,shards=1,master=1``).
-``--prefetch-workers/--prefetch-depth/--prefetch-mode`` run the async host
-pipeline (``repro_torch.data.prefetch``), ``--ckpt-dir/--ckpt-every``
-checkpoint and resume, and ``--max-restarts/--step-timeout/--health-every
+``--vocab-shard [N]`` and ``--hot-vocab-frac`` train with a
+vocab-sharded table; ``--tables`` takes any storage spec (``hot=bf16``,
+``hot=bf16,cold=int8,shards=2,master=1``). With N > 1 shards
+(``--vocab-shard N`` or ``--tables ...,shards=N``) the command starts N
+ranks, one process each (``repro_torch.launch.mesh.start_ranks``: NCCL
+with a card per rank, else gloo), as the reference re-executes itself with
+N host devices; rank 0 prints. ``--prefetch-workers/--prefetch-depth
+/--prefetch-mode`` run the async host pipeline
+(``repro_torch.data.prefetch``), ``--ckpt-dir/--ckpt-every`` checkpoint
+and resume, and ``--max-restarts/--step-timeout/--health-every
 /--reset-after`` train under the recovery supervisor
-(``TrainSession.train_resilient``). Flags of features that arrive with
-later slices of the port (other workloads, more than one vocab shard)
-are accepted by the parser and exit with an error that says so.
+(``TrainSession.train_resilient``, one rank only). Workloads other than
+w2v arrive with a later slice of the port: ``--workload`` is accepted by
+the parser and exits with an error that says so. Data parallelism
+without vocab sharding has no flag, as in the reference: it runs through
+``TrainSession(mesh=...)``.
 
-The module imports no torch at top level: process prefetch workers import
-the ``python -m`` module as their ``__mp_main__``.
+The module imports no torch at top level: process prefetch workers and
+the ranks import the ``python -m`` module as their ``__mp_main__``.
 """
 from __future__ import annotations
 
@@ -32,48 +38,44 @@ import numpy as np
 WORKLOADS = ("w2v", "doc2vec", "node2vec", "subword")
 
 
-def _tables_later_slice(tables: str) -> bool:
-    """Whether a ``--tables`` spec needs a later slice: more than one
-    shard (an unparsable spec is left to the session, which raises the
-    parser's own error)."""
+def _ranks(args) -> int:
+    """The vocab shards the flags ask for, one rank each: ``--vocab-shard
+    N`` or ``--tables ...,shards=N`` (an unparsable spec counts none; the
+    session raises the parser's own error)."""
     from repro_torch.kernels.tables import parse
     try:
-        spec = parse(tables)
+        shards = parse(args.tables).shards
     except ValueError:
-        return False
-    return spec.shards > 1
-
-
-def _unsupported(args) -> Optional[str]:
-    """The first flag naming a later slice's feature, or None."""
-    checks = (
-        (args.workload != "w2v", f"--workload {args.workload}"),
-        (args.vocab_shard > 1,
-         f"--vocab-shard {args.vocab_shard} (more than one shard needs the "
-         f"data-parallel slice, ROADMAP item 7)"),
-        (_tables_later_slice(args.tables),
-         f"--tables {args.tables} (more than one shard of the "
-         f"vocabulary, in f32 or mixed precision; ROADMAP item 8)"),
-    )
-    for bad, flag in checks:
-        if bad:
-            return flag
-    return None
+        shards = 0
+    return max(args.vocab_shard, shards, 1)
 
 
 def run_w2v(args) -> int:
+    if args.workload != "w2v":
+        print(f"error: --workload {args.workload} arrives with a later "
+              f"slice of the torch port; run it with `python -m "
+              f"repro.launch.train` meanwhile", file=sys.stderr)
+        return 2
+    n = _ranks(args)
+    if n == 1:
+        return train_rank(None, args)
+    from repro_torch.launch.mesh import start_ranks
+    return start_ranks(train_rank, n, args.device, args)
+
+
+def train_rank(mesh, args) -> int:
+    """Train on this rank of ``mesh`` (``None``: the only process); rank
+    0 prints."""
     from repro_torch.configs.w2v import W2VConfig
     from repro_torch.core.quality import evaluate
     from repro_torch.core.trainer import TrainSession
     from repro_torch.data.corpus import synthetic_cluster_corpus
     from repro_torch.data.prefetch import AsyncBatchingPipeline, make_pipeline
 
-    flag = _unsupported(args)
-    if flag is not None:
-        print(f"error: {flag} arrives with a later slice of the torch port; "
-              f"run it with `python -m repro.launch.train` meanwhile",
-              file=sys.stderr)
-        return 2
+    def say(*a) -> None:
+        if mesh is None or mesh.rank == 0:
+            print(*a, flush=True)
+
     cfg = W2VConfig(dim=args.dim, epochs=args.epochs, min_count=1,
                     subsample_t=0.0, negatives=args.negatives,
                     window=args.window,
@@ -95,26 +97,29 @@ def run_w2v(args) -> int:
         words_per_cluster=max(args.vocab // args.clusters, 1),
         n_sentences=args.sentences, mean_len=24, seed=0)
     pipe = make_pipeline(corpus, cfg)
-    print(f"workload=w2v vocab={pipe.vocab.size} "
-          f"params={2 * pipe.table_rows * cfg.dim / 1e6:.1f}M "
-          f"words/epoch={pipe.epoch_words}")
+    say(f"workload=w2v vocab={pipe.vocab.size} "
+        f"params={2 * pipe.table_rows * cfg.dim / 1e6:.1f}M "
+        f"words/epoch={pipe.epoch_words}")
     if isinstance(pipe, AsyncBatchingPipeline):
-        print(f"pipeline=async(workers={pipe.workers} depth={pipe.depth} "
-              f"mode={pipe.mode})")
+        say(f"pipeline=async(workers={pipe.workers} depth={pipe.depth} "
+            f"mode={pipe.mode})")
     else:
-        print("pipeline=sync")
+        say("pipeline=sync")
     trainer = TrainSession(pipe, cfg, backend=args.backend,
-                           device=args.device, ckpt_dir=args.ckpt_dir,
+                           device=args.device, mesh=mesh,
+                           ckpt_dir=args.ckpt_dir,
                            ckpt_every=args.ckpt_every)
-    print(f"backend={trainer.backend} device={trainer.device}")
+    say(f"backend={trainer.backend} device={trainer.device}")
     if trainer.placement is not None:
         p = trainer.placement
-        print(f"vocab_shard: hot={p.hot} cold={p.cold} shards={p.n_shards} "
-              f"rows/device={p.rows_per_device} "
-              f"(replicated would be {p.vocab_size})")
+        ranks = ("" if mesh is None else
+                 f"ranks={mesh.size} backend={mesh.backend} ")
+        say(f"vocab_shard: hot={p.hot} cold={p.cold} shards={p.n_shards} "
+            f"{ranks}rows/device={p.rows_per_device} "
+            f"(replicated would be {p.vocab_size})")
     if trainer.resumed_step is not None:
-        print(f"resumed from checkpoint batch {trainer.resumed_step} "
-              f"({trainer.state.words_seen:,} words seen)")
+        say(f"resumed from checkpoint batch {trainer.resumed_step} "
+            f"({trainer.state.words_seen:,} words seen)")
     resilient = (args.max_restarts > 0 or args.step_timeout > 0
                  or args.health_every > 0)
     if resilient:
@@ -125,33 +130,36 @@ def run_w2v(args) -> int:
             health_every=args.health_every,
             reset_after=args.reset_after)
         r = trainer.last_report
-        print(f"resilience: restarts={r.restarts} rollbacks={r.rollbacks} "
-              f"health_failures={r.health_failures} timeouts={r.timeouts} "
-              f"skipped={r.batches_skipped} "
-              f"recovery_seconds={r.recovery_seconds:.3f}")
+        say(f"resilience: restarts={r.restarts} rollbacks={r.rollbacks} "
+            f"health_failures={r.health_failures} timeouts={r.timeouts} "
+            f"skipped={r.batches_skipped} "
+            f"recovery_seconds={r.recovery_seconds:.3f}")
     else:
         trainer.train(max_batches=args.max_batches)
     if args.ckpt_dir:
-        print("checkpoint:", trainer.save_checkpoint())
+        say("checkpoint:", trainer.save_checkpoint())
     steps = max(1, trainer.state.batches_seen - (trainer.resumed_step or 0))
-    print(f"throughput: {trainer.words_per_sec:,.0f} words/sec "
-          f"({trainer.state.words_seen:,} words) "
-          f"device_busy_frac={trainer.device_busy_frac:.3f} "
-          f"host_batching_s_per_step={pipe.stats.seconds / steps:.4f} "
-          f"host_wait_s_per_step={trainer.fetch_seconds / steps:.4f}")
+    say(f"throughput: {trainer.words_per_sec:,.0f} words/sec "
+        f"({trainer.state.words_seen:,} words) "
+        f"device_busy_frac={trainer.device_busy_frac:.3f} "
+        f"host_batching_s_per_step={pipe.stats.seconds / steps:.4f} "
+        f"host_wait_s_per_step={trainer.fetch_seconds / steps:.4f}")
     # bit-exactness witness: identical configs print identical digests,
-    # whatever the prefetch worker count or a resume in between
+    # whatever the prefetch worker count or a resume in between; a sharded
+    # mesh hashes the gathered tables (a collective on every rank)
     import torch
     digest = hashlib.sha1()
-    for part in trainer.state.params().values():
+    for part in trainer.gathered_params().values():
         digest.update(part.detach().cpu().contiguous().view(torch.uint8)
                       .numpy().tobytes())
-    print(f"final_digest={digest.hexdigest()}")
+    say(f"final_digest={digest.hexdigest()}")
+    emb = trainer.embeddings()          # a collective on a sharded mesh
     inv = np.zeros(pipe.vocab.size, dtype=int)
     for w, i in pipe.vocab.ids.items():
         inv[i] = corpus.clusters[w]
-    metrics = evaluate(trainer.embeddings()[:pipe.vocab.size], inv)
-    print("quality:", {k: round(v, 4) for k, v in metrics.items()})
+    if mesh is None or mesh.rank == 0:
+        metrics = evaluate(emb[:pipe.vocab.size], inv)
+        say("quality:", {k: round(v, 4) for k, v in metrics.items()})
     return 0
 
 

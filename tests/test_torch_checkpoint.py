@@ -588,8 +588,8 @@ def test_mixed_precision_checkpoint_raises_later_slice(tmp_path):
     """A checkpoint of bf16 tables no longer waits for a later slice: the
     mixed-precision slice restores the reference's into a bf16 session
     with its exact bytes and into an f32 session decoded (reading bf16
-    through torch, never ml_dtypes); only more than one shard still
-    raises."""
+    through torch, never ml_dtypes); a ``shards=2`` spec without a mesh
+    of two ranks raises."""
     rcfg = ref_smoke(**_cfg_kw("T1", tables="hot=bf16"))
     d = str(tmp_path / "ref")
     ref = RefSession(RefPipeline(_corpus(), rcfg), rcfg, backend="jnp",
@@ -610,5 +610,5 @@ def test_mixed_precision_checkpoint_raises_later_slice(tmp_path):
     f32 = session()
     assert f32.state.w_in.dtype == torch.float32
     assert torch.equal(f32.state.w_in, mixed.state.w_in.float())
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="shards=2 .* 1 rank"):
         session("hot=bf16,shards=2")

@@ -3,7 +3,8 @@
 ``repro_torch.kernels.quant`` included) and ``chip_smoke`` leaves ``jax``,
 ``ml_dtypes`` and the reference package ``repro`` unloaded, and no source of the port names them in an import. A process
 prefetch worker's import path (and the CLI module, which such a worker
-imports as its main module) leaves ``torch`` unloaded too."""
+imports as its main module, and the mesh launcher it imports for more
+than one rank) leaves ``torch`` unloaded too."""
 import ast
 import os
 import pathlib
@@ -30,6 +31,8 @@ def test_import_leaves_jax_and_reference_unloaded():
                      if n.split(".")[0] in ("jax", "repro", "ml_dtypes"))
         print("MODULES", len(mods))
         print("DISTRIBUTED", "repro_torch.distributed.vocab_placement" in mods)
+        print("MESH", sorted(m for m in mods if m in (
+            "repro_torch.launch.mesh", "repro_torch.distributed.collectives")))
         print("TRAIN", sorted(m for m in mods if m.startswith(
             "repro_torch.train.")))
         print("KERNELS", sorted(m for m in mods if m.startswith(
@@ -42,6 +45,8 @@ def test_import_leaves_jax_and_reference_unloaded():
     n = int(out.stdout.split("MODULES")[1].split()[0])
     assert n >= 25, out.stdout       # every module of the package imported
     assert "DISTRIBUTED True" in out.stdout, out.stdout
+    assert ("MESH ['repro_torch.distributed.collectives', "
+            "'repro_torch.launch.mesh']") in out.stdout, out.stdout
     for mod in ("chaos", "checkpoint", "resilience", "supervisor"):
         assert f"'repro_torch.train.{mod}'" in out.stdout, out.stdout
     for mod in ("quant", "tables", "ops", "registry"):
@@ -60,6 +65,7 @@ def test_worker_import_path_is_torch_free():
         from repro_torch.data.corpus import synthetic_zipf_corpus
         from repro_torch.data import prefetch
         from repro_torch.distributed.vocab_placement import VocabPlacement
+        import repro_torch.launch.mesh
         import repro_torch.launch.train
         cfg = smoke(sentences_per_batch=16, max_sentence_len=16,
                     tile_windows=4, vocab_shard=True)

@@ -338,9 +338,14 @@ def test_tables_check_storage_dtypes_and_scales():
                ).check_runnable()
     with pytest.raises(ValueError, match="w_in is stored as"):
         Tables(**{**kw, "w_in": torch.zeros(8, 4)}).check_runnable()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        Tables(**{**kw, "placement": vp.VocabPlacement(20, 8, 2)}
-               ).check_runnable()
+    # a shard of a 2-shard placement holds its stripe of the tail (and
+    # of the scales): cold_per_shard rows, not the whole cold_pad
+    two = vp.VocabPlacement(20, 8, 2)
+    with pytest.raises(ValueError, match="cold_per_shard=6"):
+        Tables(**{**kw, "placement": two}).check_runnable()
+    Tables(**{**kw, "placement": two,
+              **{k: kw[k][:6] for k in ("cold_in", "cold_out", "scale_in",
+                                        "scale_out")}}).check_runnable()
 
 
 # ---------------------------------------------------------------------------

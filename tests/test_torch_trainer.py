@@ -87,13 +87,19 @@ def test_cuda_backend_on_cpu_session_raises():
                      device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()),
-                                dict(cfg_tables="shards=2"),
-                                dict(cfg_tables="hot=bf16,shards=2"),
-                                dict(cfg_tables="cold=int8,shards=2")])
-def test_later_slice_features_raise(kw):
+@pytest.mark.parametrize("kw,err,match", [
+    (dict(mesh=object()), TypeError, "DataMesh"),
+    (dict(cfg_tables="shards=2"), ValueError, "shards=2 .* 1 rank"),
+    (dict(cfg_tables="hot=bf16,shards=2"), ValueError, "shards=2 .* 1 rank"),
+    (dict(cfg_tables="cold=int8,shards=2"), ValueError,
+     "shards=2 .* 1 rank")])
+def test_later_slice_features_raise(kw, err, match):
+    """Meshes and more than one shard run since the data-parallel slice:
+    a mesh that is not a ``DataMesh`` raises a TypeError, and a
+    ``shards=N`` spec without a mesh of N ranks a ValueError naming
+    both counts."""
     cfg = smoke(tables=kw.pop("cfg_tables", ""))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(err, match=match):
         TrainSession(BatchingPipeline(_corpus(), cfg), cfg, device="cpu",
                      **kw)
 

@@ -24,9 +24,11 @@ from repro_torch.core.trainer import TrainSession
 from repro_torch.data import batching
 from repro_torch.data.batching import BatchingPipeline, plan_tiles
 from repro_torch.data.corpus import synthetic_cluster_corpus
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import vocab_placement as vp
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.tables import Tables, TableSpec
+from repro_torch.launch.mesh import DataMesh
 from tests.conftest import REPO, SRC, make_distinct_negs
 
 TOL = dict(atol=2e-5, rtol=1e-4)
@@ -342,19 +344,28 @@ def _sharded_step(n_shards):
 
 
 def test_more_than_one_shard_raises_on_the_device_step():
+    """Two shards run on a mesh of two ranks, one shard each: without one
+    the step raises, and a step carrying every requester's plan rows (a
+    lift without the rank) is refused by the runner."""
     cfg, _, tables, ex = _sharded_step(2)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
+    with pytest.raises(ValueError, match="mesh of 2 ranks"):
         ops.step(tables, ex.step_inputs(0.025, "cpu"), cfg)
+    run = ops._VocabShardedRun("torch", ops.static_for(cfg), ex.placement,
+                               mesh=DataMesh(rank=0, size=2, device="cpu"))
+    with pytest.raises(ValueError, match="lift this rank's row"):
+        run.route(ex.step_inputs(0.025, "cpu"))
 
 
-@pytest.mark.parametrize("fn", [ops.all_gather, ops.all_to_all,
-                                ops.psum_scatter, ops.pmean])
+@pytest.mark.parametrize("fn", [coll.all_gather, coll.all_to_all,
+                                coll.psum_scatter, coll.pmean])
 def test_collectives_are_identities_on_one_shard(fn):
-    x = torch.arange(12.0).view(3, 4)
-    got = fn(x, 1)
-    assert torch.equal(got.reshape(x.shape), x)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        fn(x, 2)
+    """No mesh, or a mesh of one rank, touches no process group: each
+    collective returns its input (``all_gather`` adds the rank axis).
+    More ranks run in tests/test_torch_mesh.py."""
+    x = torch.arange(12.0).view(1, 3, 4)
+    for mesh in (None, DataMesh(rank=0, size=1, device="cpu")):
+        got = fn(x, mesh)
+        assert torch.equal(got.reshape(x.shape), x)
 
 
 def test_step_rejects_mismatched_tables_and_steps():
@@ -374,9 +385,15 @@ def test_step_rejects_mismatched_tables_and_steps():
                cold_out=tables.cold_out, placement=tables.placement,
                spec=TableSpec(vocab_shard=True, cold_dtype="int8")
                ).check_runnable()
+    # a shard of two holds its stripe, cold_per_shard rows
     _, _, two, _ = _sharded_step(2)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        two.check_runnable()
+    two.check_runnable()
+    whole = two.placement.cold_pad
+    with pytest.raises(ValueError, match="cold_per_shard"):
+        Tables(w_in=two.w_in, w_out=two.w_out,
+               cold_in=torch.zeros((whole, 16)),
+               cold_out=torch.zeros((whole, 16)), spec=two.spec,
+               placement=two.placement).check_runnable()
 
 
 def test_params_from_reference_takes_the_split_tree():
@@ -436,10 +453,15 @@ def test_cli_runs_vocab_sharded_on_cpu(flags):
 
 
 @pytest.mark.parametrize("flags,names", [
-    (("--vocab-shard", "2"), "ROADMAP item 7"),
-    (("--tables", "cold=int8,shards=2"), "mixed precision"),
-    (("--tables", "shards=4"), "more than one shard")])
+    (("--vocab-shard", "2"), "shards=2 ranks=2 backend=gloo"),
+    (("--tables", "cold=int8,shards=2"), "shards=2 ranks=2 backend=gloo"),
+    (("--tables", "shards=4"), "shards=4 ranks=4 backend=gloo")])
 def test_cli_rejects_later_slice_sharding(flags, names):
+    """More than one shard runs since the data-parallel slice: the CLI
+    starts a rank per shard (gloo on the CPU) and rank 0 prints the usual
+    lines once."""
     out = _cli(*flags)
-    assert out.returncode == 2 and "later slice" in out.stderr
-    assert names in out.stderr
+    assert out.returncode == 0, out.stderr
+    assert names in out.stdout, out.stdout
+    for key in ("throughput:", "final_digest=", "quality:"):
+        assert out.stdout.count(key) == 1, out.stdout
