@@ -5,7 +5,8 @@ main path and times the kernels.
 
     python3 chip_smoke.py [--seed 0] [--sentences-per-batch 10000]
 
-About 6 min on an H100, most of it in the plain versions of phase 5.
+About 10 min on an H100, most of it in the plain versions of phases 5
+and 11.
 
 Phases (each prints one line; any failure raises and the script exits
 non-zero):
@@ -112,6 +113,24 @@ non-zero):
               (CUDA events; a span includes the other ranks' slices), each
               collective's ms per step (host clock between synchronizes), s
               per step, words/s and host batching per step.
+11. frontends — the workload frontends of ``repro_torch.frontends`` at the
+              paper's widths. node2vec on the kernels: 16,384 walks
+              (``community_graph(256, 32)``, 2 walks a node of 40 steps,
+              p=1, q=0.5) built once, one epoch at S=10,000 through
+              ``TrainSession``: T=1 ``auto`` (K2), T=8 ``auto`` (K3),
+              sharded T=1 (K1) and sharded T=8 (K4), each launching its
+              kernel once per batch; each kernel against its plain version
+              on the first 256 walks of the first batch (atol 2e-5, rtol
+              1e-4); the T=8 run again with 2 thread workers (same digest);
+              a 2-rank gloo run, sharded exact T=8 (K4), twice (same
+              digest). doc2vec (2,048 documents of 24 sentences, S=1,000)
+              and subword (65,536 words, 2,000,000 n-gram rows, S=500) run
+              one batch each at T=1 and T=8 on the plain versions
+              (``torch``, ``torch_tiled``: no kernel consumes doc rows or
+              bags), tables on the card, a rerun with the same digest. Last,
+              the pWord2Vec-like baseline (``core.baselines.matrix_sgns``)
+              beside K2 at ``bench_quality``'s shape (4 epochs): their
+              separation ratio, no gate.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the repository's ``src/`` beside it, the script fails before
@@ -1208,7 +1227,7 @@ def _digest(torch, tensors) -> str:
         t = t.detach().contiguous().cpu()
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
-        h.update(t.numpy().tobytes())
+        h.update(t.numpy())
     return h.hexdigest()
 
 
@@ -1602,6 +1621,397 @@ def phase_mesh(args, frac: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the workload frontends and the baselines
+# ---------------------------------------------------------------------------
+
+# node2vec's graph and walks (the reference's CLI defaults for p, q and the
+# walk length; 2 walks a node): 8,192 nodes, about 655K walk tokens
+NODE2VEC = dict(communities=256, nodes_per=32, walks_per_node=2,
+                walk_length=40, p=1.0, q=0.5)
+NODE2VEC_RUNS = ((1, False, "cuda_pipelined", "cuda_pipelined"),
+                 (8, False, "cuda_tiled", "cuda_tiled"),
+                 (1, True, "cuda", "cuda"),
+                 (8, True, "cuda_tiled", "cuda_tiled_fused"))
+PARITY_WALKS = 256
+# doc2vec and subword run the plain versions: depth cut to one batch of
+# S sentences (fastText's default -bucket 2000000 n-gram rows, -minn 3,
+# -maxn 5)
+DOC2VEC = dict(docs=2048, sents_per_doc=24, clusters=64,
+               words_per_cluster=1024)
+DOC2VEC_S = 1000
+SUBWORD = dict(vocab=65_536, clusters=64, sentences=20_000,
+               buckets=2_000_000, minn=3, maxn=5)
+SUBWORD_S = 500
+
+
+def _inv_clusters(np, pipe, corpus):
+    """Ground-truth cluster of each vocabulary id."""
+    inv = np.zeros(pipe.vocab.size, dtype=int)
+    for w, i in pipe.vocab.ids.items():
+        inv[i] = corpus.clusters[w]
+    return inv
+
+
+def _head(batch, n: int):
+    """The first ``n`` sentences of a host batch, with its tile plan."""
+    from repro_torch.data.batching import Batch, TilePlan
+
+    plan = None
+    if batch.plan is not None:
+        p = batch.plan
+        plan = TilePlan(tile=p.tile, uniq=p.uniq[:n], scatter=p.scatter[:n],
+                        ucount=p.ucount[:n], strict=p.strict[:n])
+    return Batch(tokens=batch.tokens[:n], negs=batch.negs[:n],
+                 lengths=batch.lengths[:n],
+                 n_words=int(batch.lengths[:n].sum()), plan=plan)
+
+
+def node2vec_workload(args):
+    """The node2vec workload at the paper's widths, walks built once."""
+    from repro_torch import frontends
+
+    t0 = time.perf_counter()
+    w = frontends.get("node2vec").build(make_config(args, 1), **NODE2VEC,
+                                        seed=args.seed)
+    walks_s = time.perf_counter() - t0
+    steps = sum(len(s) - 1 for s in w.corpus.sentences)
+    _line("frontends", workload="node2vec", nodes=w.corpus.vocab_size,
+          walks=len(w.corpus.sentences),
+          tokens=sum(len(s) for s in w.corpus.sentences),
+          walk_seconds=f"{walks_s:.2f}",
+          us_per_walk_step=f"{walks_s / max(steps, 1) * 1e6:.2f}")
+    return w
+
+
+def node2vec_run(torch, np, args, w, tile: int, shard: bool, expect: str,
+                 kernel: str, vocab=None, workers: int = 0):
+    """One epoch of node2vec through ``TrainSession`` (``auto``): it must
+    resolve to ``expect`` and launch ``kernel`` once per batch and nothing
+    else (counts zeroed before the run, read after). Returns the session,
+    its launches and its tables' digest."""
+    from repro_torch.core.quality import evaluate
+    from repro_torch.core.trainer import TrainSession
+    from repro_torch.data.batching import BatchingPipeline
+    from repro_torch.data.prefetch import AsyncBatchingPipeline
+    from repro_torch.kernels import fullw2v
+
+    cfg = dataclasses.replace(w.cfg, tile_windows=tile, vocab_shard=shard)
+    pipe = (AsyncBatchingPipeline(w.corpus, cfg, vocab=vocab,
+                                  workers=workers, mode="thread")
+            if workers else BatchingPipeline(w.corpus, cfg, vocab=vocab))
+    w.attach(pipe)
+    sess = TrainSession(pipe, cfg, backend="auto", device="cuda")
+    if sess.backend != expect:
+        raise AssertionError(f"node2vec T={tile} shard={shard} resolved to "
+                             f"{sess.backend!r}, expected {expect!r}")
+    fullw2v.reset_launch_counts()
+    sess.train()
+    batches = sess.state.batches_seen
+    launches = dict(fullw2v.LAUNCHES)
+    others = {k: v for k, v in launches.items() if k != kernel and v}
+    if launches[kernel] != batches or others or batches < 2:
+        raise AssertionError(f"node2vec {kernel}: {launches[kernel]} "
+                             f"launches for {batches} batches ({launches})")
+    for name, t in sess.state.params().items():
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"node2vec {name} has non-finite values")
+    q = evaluate(sess.embeddings(), _inv_clusters(np, pipe, w.corpus))
+    digest = _digest(torch, sess.state.params().values())
+    name = f"T={tile}" + (" sharded" if shard else "") + (
+        f" {workers} thread workers" if workers else "")
+    _line("frontends", workload="node2vec", run=name, backend=sess.backend,
+          kernel=kernel, launches=launches[kernel], batches=batches,
+          S=cfg.sentences_per_batch,
+          s_per_step=f"{sess.wall_seconds / batches:.4f}",
+          words_per_s=f"{sess.words_per_sec:.0f}",
+          host_batching_s_per_step=f"{pipe.stats.seconds / batches:.4f}",
+          host_wait_s_per_step=f"{sess.fetch_seconds / batches:.4f}",
+          separation=f"{q['separation']:.4f}",
+          communities=NODE2VEC["communities"], digest=digest[:16])
+    return sess, launches[kernel], digest
+
+
+def node2vec_parity(torch, np, args, sessions) -> dict:
+    """K1, K2, K3 and K4 each against its plain version on the first
+    ``PARITY_WALKS`` walks of the node2vec runs' first batch (K4 on the
+    sharded run's exchange, the table split by its placement), from
+    seeded random tables; returns the max abs error by kernel."""
+    from repro_torch.distributed.vocab_placement import plan_exchange
+    from repro_torch.kernels import fullw2v, ops, ref, registry
+
+    errs = {}
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    for tile in (1, 8):
+        sess = sessions[tile, False]
+        cfg, pipe = sess.cfg, sess.pipeline
+        batch = _head(next(pipe.batches(pad_len=cfg.resolved_pad_len,
+                                        epoch=0)), PARITY_WALKS)
+        step = batch.step_inputs(cfg.lr, torch.device("cuda"))
+        static = ops.static_for(cfg, step.tile)
+        shape = (pipe.table_rows, cfg.dim)
+        w = [(torch.rand(shape, generator=gen, device="cuda") - 0.5)
+             / cfg.dim for _ in range(2)]
+        want = [t.clone() for t in w]
+        registry.get("torch_tiled" if tile > 1 else "torch").update(
+            *want, step, static)
+        for name in (("cuda", "cuda_pipelined") if tile == 1
+                     else ("cuda_tiled",)):
+            got = [t.clone() for t in w]
+            registry.get(name).update(*got, step, static)
+            torch.cuda.synchronize()
+            errs[name] = max(_check_close(torch, f"node2vec {name} {part}",
+                                          g, x)
+                             for part, g, x in zip(("w_in", "w_out"), got,
+                                                   want))
+    sess = sessions[8, True]
+    cfg, pipe, pl = sess.cfg, sess.pipeline, sess.placement
+    batch = _head(next(pipe.batches(pad_len=cfg.resolved_pad_len,
+                                    epoch=0)), PARITY_WALKS)
+    step = plan_exchange(batch, pl).step_inputs(cfg.lr,
+                                                torch.device("cuda"))
+    static = ops.static_for(cfg, step.tile)
+    full = [((torch.rand((pipe.table_rows, cfg.dim), generator=gen,
+                         device="cuda") - 0.5) / cfg.dim).cpu().numpy()
+            for _ in range(2)]
+    (hot_in, cold_in), (hot_out, cold_out) = (
+        [torch.from_numpy(a).cuda() for a in pl.split(t)] for t in full)
+    run = ops._VocabShardedRun("cuda_tiled", static, pl, exchange="exact")
+    route = run.route(step)
+    split = (hot_in, hot_out, run.gather(route, cold_in),
+             run.gather(route, cold_out))
+    args4 = (step.tokens, step.negs, step.lengths, step.lr, static.w_f,
+             static.tile, step.plan_uniq, step.plan_scatter,
+             step.plan_ucount, step.plan_strict)
+    want = [t.clone() for t in split]
+    ref.batch_sgns_tiled_fused_ref(*want, *args4,
+                                   gemm_windows=static.gemm_windows)
+    got = [t.clone() for t in split]
+    fullw2v.fullw2v_cuda_tiled_fused(*got, *args4,
+                                     gemm_windows=static.gemm_windows)
+    torch.cuda.synchronize()
+    errs["cuda_tiled_fused"] = max(
+        _check_close(torch, f"node2vec cuda_tiled_fused {part}", g, x)
+        for part, g, x in zip(("hot_in", "hot_out", "got_in", "got_out"),
+                              got, want))
+    _line("frontends", workload="node2vec", parity=f"first {PARITY_WALKS} "
+          f"walks of the first batch", atol=ATOL, rtol=RTOL,
+          **{f"{k}_max_abs_err": f"{v:.3e}" for k, v in errs.items()})
+    return errs
+
+
+def frontend_mesh_rank(mesh, corpus, cfg_kw: dict) -> dict:
+    """On each of 2 gloo ranks: node2vec vocab-sharded (one shard a rank,
+    the exact exchange) at T=8, one epoch, twice; each run must launch K4
+    once per batch and the two runs' gathered tables must hash alike."""
+    import torch
+
+    from repro_torch.configs.w2v import W2VConfig
+    from repro_torch.core.trainer import TrainSession
+    from repro_torch.data.batching import BatchingPipeline
+    from repro_torch.kernels import _build, fullw2v
+
+    _build.load()
+    cfg = W2VConfig(**cfg_kw)
+    vocab, runs = None, []
+    for _ in range(2):
+        pipe = BatchingPipeline(corpus, cfg, vocab=vocab)
+        vocab = pipe.vocab
+        sess = TrainSession(pipe, cfg, backend="auto", mesh=mesh)
+        fullw2v.reset_launch_counts()
+        sess.train()
+        n = fullw2v.LAUNCHES["cuda_tiled_fused"]
+        if n != sess.state.batches_seen or sum(fullw2v.LAUNCHES.values()) != n:
+            raise AssertionError(f"rank {mesh.rank}: {dict(fullw2v.LAUNCHES)}"
+                                 f" for {sess.state.batches_seen} batches")
+        runs.append(dict(digest=_digest(torch, sess.gathered_params()
+                                        .values()),
+                         launches=n, batches=sess.state.batches_seen,
+                         s_per_step=sess.wall_seconds
+                         / sess.state.batches_seen,
+                         host_batching_s_per_step=pipe.stats.seconds
+                         / sess.state.batches_seen))
+    launches = _all_ranks(mesh, [r["launches"] for r in runs])
+    return dict(runs=runs, launches=launches)
+
+
+def node2vec_mesh(args, w) -> dict:
+    """The 2-rank sharded node2vec run (K4) twice on the one card."""
+    from repro_torch.launch.mesh import start_ranks
+
+    cfg = dataclasses.replace(w.cfg, tile_windows=8, vocab_shard=True,
+                              tables="shards=2,exchange=exact")
+    t0 = time.perf_counter()
+    res = start_ranks(frontend_mesh_rank, 2, "cuda", w.corpus,
+                      dataclasses.asdict(cfg), timeout=600)
+    a, b = res["runs"]
+    if a["digest"] != b["digest"]:
+        raise AssertionError("node2vec 2-rank sharded run: a rerun's "
+                             "digest differs")
+    _line("frontends", workload="node2vec", run="N=2 gloo sharded exact T=8",
+          kernel="cuda_tiled_fused", launches_by_rank=res["launches"],
+          s_per_step=f"{a['s_per_step']:.4f}",
+          host_batching_s_per_step=f"{a['host_batching_s_per_step']:.4f}",
+          rerun_digest="same", digest=a["digest"][:16],
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    return {"N=2 sharded T=8 (by rank, by run)": res["launches"]}
+
+
+def plain_frontend_run(torch, np, args, name: str, knobs: dict, S: int,
+                       tile: int) -> dict:
+    """One batch of a doc2vec or subword workload through ``TrainSession``
+    (``auto``), twice: it must resolve to the plain version, keep its
+    tables on the card, launch no CUDA kernel, stay finite and give the
+    same digest both times."""
+    from repro_torch import frontends
+    from repro_torch.core.trainer import TrainSession
+    from repro_torch.data.batching import BatchingPipeline
+    from repro_torch.kernels import fullw2v
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(make_config(args, tile), sentences_per_batch=S)
+    w = frontends.get(name).build(cfg, **knobs, seed=args.seed)
+    build_s = time.perf_counter() - t0
+    want = "torch_tiled" if tile > 1 else "torch"
+    pipe = BatchingPipeline(w.corpus, w.cfg)
+    t0 = time.perf_counter()
+    w.attach(pipe)
+    prepare_s = time.perf_counter() - t0
+    digests, steps = [], []
+    for _ in range(2):            # the run, then a rerun on the same batches
+        host0 = pipe.stats.seconds
+        sess = TrainSession(pipe, w.cfg, backend="auto", device="cuda")
+        dev = sess.state.w_in.device
+        if sess.backend != want or dev.type != "cuda":
+            raise AssertionError(f"{name} T={tile} resolved to "
+                                 f"{sess.backend} on {dev}")
+        fullw2v.reset_launch_counts()
+        sess.train(max_batches=1)
+        if any(fullw2v.LAUNCHES.values()):
+            raise AssertionError(f"{name}: a CUDA kernel ran "
+                                 f"({dict(fullw2v.LAUNCHES)})")
+        for part, t in sess.state.params().items():
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{name} {part} has non-finite values")
+        digests.append(_digest(torch, sess.state.params().values()))
+        steps.append(dict(s=sess.wall_seconds, words=sess.state.words_seen,
+                          host=pipe.stats.seconds - host0))
+        del sess
+    if digests[0] != digests[1]:
+        raise AssertionError(f"{name} T={tile}: a rerun's digest differs")
+    windows = steps[0]["words"]
+    out = dict(backend=want, device=str(dev), S=S, windows=windows,
+               s_per_step=steps[0]["s"], rerun_s_per_step=steps[1]["s"],
+               ms_per_window=steps[0]["s"] * 1e3 / windows,
+               host_batching_s_per_step=steps[0]["host"],
+               vocab=pipe.vocab.size, extra_rows=pipe.extra_rows)
+    _line("frontends", workload=name, T=tile, backend=want, device=dev,
+          S=S, vocab=pipe.vocab.size, extra_rows=pipe.extra_rows,
+          tables_gb=f"{2 * pipe.table_rows * w.cfg.dim * 4 / 1e9:.3f}",
+          s_per_step=f"{steps[0]['s']:.3f}",
+          rerun_s_per_step=f"{steps[1]['s']:.3f}",
+          ms_per_window=f"{out['ms_per_window']:.4f}", windows=windows,
+          host_batching_s_per_step=f"{steps[0]['host']:.4f}",
+          build_seconds=f"{build_s:.1f}", prepare_seconds=f"{prepare_s:.1f}",
+          rerun_digest="same", digest=digests[0][:16])
+    return out
+
+
+def baselines_quality(torch, np, args, f32_8_epochs: float) -> dict:
+    """The pWord2Vec-like baseline (``core.baselines.matrix_sgns``, plain
+    torch) on the card at bench_quality's shape (d=64, S=128, L=48, 8
+    clusters of 16 words, 400 sentences, 4 epochs) beside K2 on the same
+    batches from the same tables and learning rates: the reference's
+    ``quality/equivalence`` row (separation ratio ≈ 1.0 expected, no
+    gate)."""
+    from repro_torch.configs.w2v import W2VConfig
+    from repro_torch.core.baselines import matrix_sgns
+    from repro_torch.core.quality import evaluate
+    from repro_torch.core.trainer import init_state
+    from repro_torch.data.batching import BatchingPipeline
+    from repro_torch.data.corpus import synthetic_cluster_corpus
+    from repro_torch.kernels import fullw2v, ops, registry
+
+    corpus = synthetic_cluster_corpus(n_clusters=8, words_per_cluster=16,
+                                      n_sentences=400, mean_len=14, seed=0)
+    cfg = W2VConfig(dim=64, window=5, negatives=5, epochs=4, min_count=1,
+                    subsample_t=0.0, sentences_per_batch=128,
+                    max_sentence_len=48, seed=args.seed)
+    k2 = registry.get("cuda_pipelined")
+    out = {}
+    for name in ("matrix_sgns", "cuda_pipelined"):
+        pipe = BatchingPipeline(corpus, cfg)
+        st = init_state(pipe.vocab.size, cfg, cfg.seed, "cuda")
+        words, total = 0, pipe.epoch_words * cfg.epochs
+        fullw2v.reset_launch_counts()
+        t0 = time.perf_counter()
+        for ep in range(cfg.epochs):
+            for b in pipe.batches(pad_len=48, epoch=ep):
+                lr = cfg.lr * max(1 - words / total, cfg.min_lr_frac)
+                step = b.step_inputs(lr, torch.device("cuda"))
+                if name == "matrix_sgns":
+                    matrix_sgns(st.w_in, st.w_out, step.tokens, step.negs,
+                                step.lengths, step.lr, cfg.fixed_window)
+                else:
+                    k2.update(st.w_in, st.w_out, step, ops.static_for(cfg))
+                words += b.n_words
+        torch.cuda.synchronize()
+        launches = dict(fullw2v.LAUNCHES)
+        if name == "matrix_sgns" and any(launches.values()):
+            raise AssertionError(f"matrix_sgns launched {launches}")
+        q = evaluate(st.w_in.cpu().numpy(), _inv_clusters(np, pipe, corpus),
+                     seed=1)
+        out[name] = dict(separation=q["separation"],
+                         seconds=time.perf_counter() - t0,
+                         launches=launches["cuda_pipelined"])
+    ratio = out["cuda_pipelined"]["separation"] / max(
+        out["matrix_sgns"]["separation"], 1e-9)
+    out["ratio"] = ratio
+    _line("baselines", shape="bench_quality (d=64 S=128 L=48 4 epochs)",
+          matrix_sgns_separation=f"{out['matrix_sgns']['separation']:.4f}",
+          matrix_sgns_seconds=f"{out['matrix_sgns']['seconds']:.1f}",
+          k2_separation=f"{out['cuda_pipelined']['separation']:.4f}",
+          k2_launches=out["cuda_pipelined"]["launches"],
+          fullw2v_vs_pword2vec_ratio=f"{ratio:.4f}",
+          expected="about 1.0 (no gate)",
+          phase9_f32_k2_8_epochs_separation=f"{f32_8_epochs:.4f}")
+    return out
+
+
+def phase_frontends(torch, np, args, f32_8_epochs: float) -> dict:
+    """Phase 11; returns node2vec's launches by kernel and run."""
+    t0 = time.perf_counter()
+    w = node2vec_workload(args)
+    sessions, launches, digests, vocab = {}, {}, {}, None
+    for tile, shard, expect, kernel in NODE2VEC_RUNS:
+        sess, n, digests[tile, shard] = node2vec_run(
+            torch, np, args, w, tile, shard, expect, kernel, vocab=vocab)
+        vocab = sess.pipeline.vocab
+        sessions[tile, shard] = sess
+        launches.setdefault(kernel, {})[
+            f"T={tile}" + (" sharded" if shard else "")] = n
+    node2vec_parity(torch, np, args, sessions)
+    _, n, digest = node2vec_run(torch, np, args, w, 8, False, "cuda_tiled",
+                                "cuda_tiled", vocab=vocab, workers=2)
+    if digest != digests[8, False]:
+        raise AssertionError("node2vec T=8 with 2 thread workers: the "
+                             "digest differs from the synchronous run's")
+    launches["cuda_tiled"]["T=8 2 thread workers"] = n
+    del sessions
+    launches["cuda_tiled_fused"].update(node2vec_mesh(args, w))
+    del w
+    plain = {}
+    for name, knobs, S in (("doc2vec", DOC2VEC, DOC2VEC_S),
+                           ("subword", SUBWORD, SUBWORD_S)):
+        for tile in (1, 8):
+            plain[name, tile] = plain_frontend_run(torch, np, args, name,
+                                                   knobs, S, tile)
+    torch.cuda.empty_cache()
+    base = baselines_quality(torch, np, args, f32_8_epochs)
+    _line("frontends", seconds=f"{time.perf_counter() - t0:.1f}")
+    return dict(launches=launches, plain=plain, baselines=base)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1715,6 +2125,10 @@ def main(argv=None) -> int:
     # 10. multi-rank on the one card: data parallelism and vocab sharding
     # on gloo ranks that time-slice it (N=2, then N=4 at reduced depth)
     mesh_launches = phase_mesh(args, frac)
+
+    # 11. the workload frontends: node2vec on the kernels, doc2vec and
+    # subword on the plain versions; the pWord2Vec-like baseline
+    fe = phase_frontends(torch, np, args, quality["f32"]["separation"])
     mixed_launches = {"cuda": {QUALITY_MIXED: quality["mixed"]["launches"]}}
     for (tables, tile), m in mixed.items():
         mixed_launches.setdefault(m["kernel"], {})[tables] = m["launches"]
@@ -1769,6 +2183,8 @@ def main(argv=None) -> int:
         row["mixed_launches"] = mixed_launches[name]
         # launches on each rank of phase 10's runs, by run
         row["multi_rank_launches"] = mesh_launches.get(name, {})
+        # launches in phase 11's node2vec runs (rank 0 of the mesh run)
+        row["node2vec_launches"] = fe["launches"].get(name, {})
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -355,14 +355,19 @@ class TrainSession:
         self.on_metrics = on_metrics
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
+        # the trainable table covers the vocabulary plus any frontend
+        # extras (doc rows, n-gram buckets — DESIGN.md §12); extras carry
+        # zero counts so placement planning stripes them into the cold tail
         table_rows = getattr(pipeline, "table_rows", pipeline.vocab.size)
         self.placement = None
         if self.spec.vocab_shard:
             from repro_torch.distributed.vocab_placement import \
                 VocabPlacement
+            counts = (pipeline.table_counts()
+                      if hasattr(pipeline, "table_counts")
+                      else pipeline.vocab.counts)
             # one shard per rank
-            self.placement = VocabPlacement.plan(pipeline.vocab.counts,
-                                                 ranks,
+            self.placement = VocabPlacement.plan(counts, ranks,
                                                  hot_frac=self.spec.hot_frac)
             # the pipeline plans each batch's exchange as it finalizes it
             # (Batch.exchange); _make_step plans inline for batches without

@@ -4,8 +4,9 @@ A numpy copy of ``repro.data.batching``: batches and tile plans are
 bit-identical to the reference's for the same (corpus, cfg, epoch, index).
 Only the device lift (:meth:`Batch.step_inputs`) differs — it builds the
 port's torch ``StepInputs``. Vocab-sharding exchange plans ride along
-(``Batch.exchange``); subword bag tables are not carried by this package
-yet.
+(``Batch.exchange``), and so do the frontends' doc rows (``Batch.docs``)
+and subword bags (``Batch.bags``, materialized from the pipeline's
+``bag_table``).
 
 Responsibilities (all host-side, exactly as the paper assigns them):
   * encode + subsample sentences,
@@ -284,9 +285,6 @@ def finalize_packed(packed: PackedBatch, cfg: W2VConfig,
     worker, in any order, produces the identical Batch, and
     ``plan_exchange`` is rng-free, so the attached exchange inherits the
     same determinism."""
-    if bag_table is not None:
-        raise NotImplementedError(
-            "subword bag tables arrive with a later slice of the torch port")
     toks, lens = packed.tokens, packed.lengths
     docs = packed.docs
     rng = negatives_rng(cfg.seed, epoch, packed.index)
@@ -307,8 +305,16 @@ def finalize_packed(packed: PackedBatch, cfg: W2VConfig,
     plan = None
     if cfg.tile_windows > 1:
         plan = plan_tiles(toks, negs, lens, cfg.tile_windows)
+    bags = None
+    if bag_table is not None:
+        # (S, L, B) member rows per token position; positions past the
+        # sentence length masked to -1 so sharded request lists only carry
+        # rows the kernel actually touches
+        pos = np.arange(toks.shape[1])[None, :] < lens[:, None]
+        bags = np.where(pos[..., None], bag_table[toks], -1).astype(np.int32)
     batch = Batch(tokens=toks, negs=negs, lengths=lens, n_words=n_words,
-                  plan=plan, docs=docs, epoch=epoch, index=packed.index)
+                  plan=plan, docs=docs, bags=bags, epoch=epoch,
+                  index=packed.index)
     if placement is not None:
         # local import: the planner imports this module (first_seen_unique)
         from repro_torch.distributed.vocab_placement import plan_exchange
@@ -347,6 +353,16 @@ class BatchingPipeline:
         """Embedding-table rows the trainer must allocate: vocabulary plus
         frontend extras (doc rows, n-gram buckets)."""
         return self.vocab.size + self.extra_rows
+
+    def table_counts(self) -> np.ndarray:
+        """Occurrence counts over the full table. Frontend extras count
+        zero, so ``VocabPlacement.plan`` always stripes them into the
+        sharded cold tail and the negative sampler (built from the vocab's
+        unigram weights alone) can never draw them."""
+        if not self.extra_rows:
+            return self.vocab.counts
+        return np.concatenate(
+            [self.vocab.counts, np.zeros(self.extra_rows, np.int64)])
 
     def _resolve_epoch(self, epoch: Optional[int]) -> int:
         if epoch is None:

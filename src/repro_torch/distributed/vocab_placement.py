@@ -314,11 +314,7 @@ class VocabExchange:
         import torch
 
         from repro_torch.data.batching import rank_rows
-        from repro_torch.kernels.registry import StepInputs
-        if self.docs is not None or self.bags is not None:
-            raise NotImplementedError(
-                "doc2vec/subword exchange plans (docs, bags) arrive with a "
-                "later slice of the torch port")
+        from repro_torch.kernels.registry import StepInputs, frontend_inputs
         n = self.placement.n_shards
         if mesh is not None and mesh.size != n:
             raise ValueError(f"an exchange planned for {n} shards lifts on "
@@ -336,6 +332,7 @@ class VocabExchange:
                       plan_scatter=put(self.plan_scatter[rows]),
                       plan_ucount=put(self.plan_ucount[rows]),
                       plan_strict=put(self.plan_strict[rows]))
+        kw.update(frontend_inputs(self, rows, put))
         return StepInputs(tokens=put(self.tokens[rows]),
                           negs=put(self.negs[rows]),
                           lengths=put(self.lengths[rows]),

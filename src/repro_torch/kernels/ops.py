@@ -67,8 +67,13 @@ def _tiled_args(step: StepInputs, static: KernelStatic):
             step.plan_scatter, step.plan_ucount, step.plan_strict)
 
 
+def _frontend_args(step: StepInputs) -> dict:
+    return dict(static_ids=step.static_ctx, bags=step.bags)
+
+
 def _update_torch(w_in, w_out, step, static):
-    return _ref.batch_sgns_ref(w_in, w_out, *_seq_args(step), static.w_f)
+    return _ref.batch_sgns_ref(w_in, w_out, *_seq_args(step), static.w_f,
+                               **_frontend_args(step))
 
 
 def _update_cuda(w_in, w_out, step, static):
@@ -82,7 +87,8 @@ def _update_cuda_pipelined(w_in, w_out, step, static):
 
 def _update_torch_tiled(w_in, w_out, step, static):
     return _ref.batch_sgns_tiled_ref(w_in, w_out, *_tiled_args(step, static),
-                                     gemm_windows=static.gemm_windows)
+                                     gemm_windows=static.gemm_windows,
+                                     **_frontend_args(step))
 
 
 def _update_cuda_tiled(w_in, w_out, step, static):
@@ -186,7 +192,8 @@ def step(tables: Tables, step: StepInputs, cfg: W2VConfig,
                 "exchange plan (cold_ids); build the step via "
                 "repro_torch.distributed.vocab_placement.plan_exchange")
         be = registry.resolve(backend, tiled=step.has_plan, vocab_shard=True,
-                              dtypes=dtypes, platform=platform)
+                              dtypes=dtypes, frontends=step.frontends,
+                              platform=platform)
         _VocabShardedRun(be.name, static, tables.placement,
                          exchange=spec.exchange, spec=spec,
                          mesh=mesh)(tables, step)
@@ -198,7 +205,7 @@ def step(tables: Tables, step: StepInputs, cfg: W2VConfig,
             "a TrainSession with cfg.vocab_shard=True, or build the step "
             "without plan_exchange.")
     be = registry.resolve(backend, tiled=step.has_plan, dtypes=dtypes,
-                          platform=platform)
+                          frontends=step.frontends, platform=platform)
     dt = spec.hot_dtype
     if dt == "float32":
         be.update(tables.w_in, tables.w_out, step, static)

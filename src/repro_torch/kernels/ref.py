@@ -25,8 +25,14 @@ tables to the same effect) and return them. Control flow reads the index
 arrays once on the host; every table operation stays on the tables'
 device.
 
-The frontend extensions of the reference (``static_ids``, ``bags``) arrive
-with the frontends slice of the port and raise until then.
+The frontend extensions of the reference run here too: ``static_ids``
+(one table row per sentence, -1 for none: the doc2vec document row, an
+extra context row of every window, loaded once per sentence and written
+back once) and ``bags`` (per-position member rows, -1 padded: the subword
+frontend's word row and hashed n-gram rows, loaded as their sum and stored
+by adding the row's accumulated delta to every member). No CUDA kernel
+consumes them, in this package or in the reference, so a frontend step
+always runs these plain versions.
 """
 from __future__ import annotations
 
@@ -39,13 +45,6 @@ from repro_torch.configs.w2v import resolve_gemm_windows
 from repro_torch.core.sgns import stable_sigmoid, window_delta
 
 
-def _no_frontends(static_ids, bags) -> None:
-    if static_ids is not None or bags is not None:
-        raise NotImplementedError(
-            "static_ids/bags (doc2vec and subword frontends) arrive with a "
-            "later slice of the torch port")
-
-
 def lr32(lr) -> float:
     """The learning rate as the f32 value the kernels receive."""
     return float(np.float32(float(lr)))
@@ -56,46 +55,134 @@ def _offsets(w_f: int, device) -> torch.Tensor:
                         dtype=torch.int64, device=device)
 
 
+def check_frontends(tokens: torch.Tensor, static_ids, bags) -> None:
+    """Raise unless ``static_ids`` is an integer ``(S,)`` tensor and
+    ``bags`` an integer ``(S, L, B)`` tensor on the tokens' device (either
+    may be ``None``)."""
+    S, L = tokens.shape
+    for name, t, shape in (("static_ids", static_ids, (S,)),
+                           ("bags", bags, (S, L))):
+        if t is None:
+            continue
+        if (not isinstance(t, torch.Tensor) or t.dtype not in (
+                torch.int32, torch.int64) or t.device != tokens.device
+                or tuple(t.shape[:len(shape)]) != shape
+                or t.dim() != len(shape) + (name == "bags")):
+            raise ValueError(
+                f"{name} must be an int32 or int64 tensor of shape "
+                f"{shape + (('B',) if name == 'bags' else ())} on "
+                f"{tokens.device}, got "
+                f"{getattr(t, 'dtype', type(t).__name__)} "
+                f"{tuple(getattr(t, 'shape', ()))}")
+
+
+class _Ring:
+    """The input rows of one sentence's context ring, with the frontends'
+    load and store rules: ``slots`` rows of ``buf``; with ``bags`` a
+    load-time mirror ``buf0``, so a store adds the row's accumulated
+    update ``buf - buf0`` to every member of the position's bag (the
+    reference's ``_position_row``/``_bag_scatter``); without, a load
+    copies the token's row and a store writes the row back. Every valid
+    member of a bag receives the same delta, so the order in which
+    repeated members add it cannot change the bits."""
+
+    def __init__(self, w_in: torch.Tensor, toks: list, slots: int,
+                 bags: Optional[torch.Tensor]):
+        self.w_in, self.toks, self.slots, self.bags = w_in, toks, slots, bags
+        shape = (slots, w_in.shape[1])
+        self.buf = torch.zeros(shape, dtype=w_in.dtype, device=w_in.device)
+        self.buf0 = None if bags is None else torch.zeros_like(self.buf)
+
+    def load(self, q: int) -> None:
+        s = q % self.slots
+        if self.bags is None:
+            self.buf[s] = self.w_in[self.toks[q]]
+            return
+        mem = self.bags[q]
+        rows = self.w_in[mem.clamp(min=0).long()]                   # (B, d)
+        row = torch.where((mem >= 0)[:, None], rows, 0.0).sum(0)
+        self.buf[s] = row
+        self.buf0[s] = row
+
+    def store(self, p: int) -> None:
+        s = p % self.slots
+        if self.bags is None:
+            self.w_in[self.toks[p]] = self.buf[s]
+            return
+        mem = self.bags[p]
+        delta = self.buf[s] - self.buf0[s]
+        self.w_in.index_add_(0, mem.clamp(min=0).long(), torch.where(
+            (mem >= 0)[:, None], delta[None, :], 0.0))
+
+
+class _Doc:
+    """A sentence's static context row (doc2vec): its value at the
+    sentence's start, the value the windows update, and the write-back of
+    the accumulated update at the sentence's end. ``sid < 0``: none."""
+
+    def __init__(self, w_in: torch.Tensor, sid: int):
+        self.sid = sid
+        self.on = sid >= 0
+        if self.on:
+            self.val0 = w_in[sid].clone()
+            self.val = self.val0.clone()
+
+    def write_back(self, w_in: torch.Tensor) -> None:
+        if self.on:
+            w_in[self.sid] += self.val - self.val0
+
+
 def sentence_sgns_ref(w_in: torch.Tensor, w_out: torch.Tensor,
                       tokens: torch.Tensor, negs: torch.Tensor, length: int,
                       lr: float, w_f: int,
-                      tokens_host: Optional[list] = None) -> None:
+                      tokens_host: Optional[list] = None,
+                      static_id: int = -1,
+                      bags: Optional[torch.Tensor] = None) -> None:
     """One sentence of the sequential schedule, in place.
 
     ``tokens`` (L,) and ``negs`` (L, N) live on the tables' device;
     ``tokens_host`` is the same row as a Python list (read once by the
-    batch loop, so control flow never waits on the device)."""
-    L = tokens.shape[0]
+    batch loop, so control flow never waits on the device). ``static_id``
+    (a table row, -1 for none) rides as one more context row of every
+    window; ``bags`` (L, B) replaces each position's row with its bag."""
     r = 2 * w_f + 1
     dev = w_in.device
     toks = tokens_host if tokens_host is not None else tokens.tolist()
     offsets = _offsets(w_f, dev)
-    buf = torch.zeros((r, w_in.shape[1]), dtype=w_in.dtype, device=dev)
+    ring = _Ring(w_in, toks, r, bags)
+    buf = ring.buf
+    doc = _Doc(w_in, static_id)
 
-    for q in range(min(w_f, L)):                  # preload
-        if q < length:
-            buf[q % r] = w_in[toks[q]]
+    for q in range(min(w_f, length)):             # preload
+        ring.load(q)
 
     for t in range(length):
         q = t + w_f                               # evict + load leading edge
         if q < length:
             if q - r >= 0:
-                w_in[toks[q - r]] = buf[(q - r) % r]
-            buf[q % r] = w_in[toks[q]]
+                ring.store(q - r)
+            ring.load(q)
 
         p = t + offsets                           # window t
         mask = (p >= 0) & (p < length)
         slots = torch.remainder(p, r)
         ctx = buf[slots]
         out_idx = torch.cat([tokens[t:t + 1].long(), negs[t].long()])
+        if doc.on:
+            ctx = torch.cat([ctx, doc.val[None]])
+            mask = torch.cat([mask, mask.new_ones(1)])
         d_ctx, d_out = window_delta(ctx, w_out[out_idx], mask, lr)
+        if doc.on:
+            doc.val += d_ctx[-1]
+            d_ctx = d_ctx[:-1]
         buf.index_add_(0, slots, d_ctx)           # masked rows add zeros
         w_out.index_add_(0, out_idx, d_out)
 
     for k in range(r):                            # flush, increasing order
         p = length - r + k
         if p >= 0:
-            w_in[toks[p]] = buf[p % r]
+            ring.store(p)
+    doc.write_back(w_in)
 
 
 def batch_sgns_ref(
@@ -106,17 +193,20 @@ def batch_sgns_ref(
     lengths: torch.Tensor,   # (S,) int32
     lr,                      # float or 0-d tensor
     w_f: int,
-    static_ids=None,
-    bags=None,
+    static_ids: Optional[torch.Tensor] = None,   # (S,) int, -1 = none
+    bags: Optional[torch.Tensor] = None,         # (S, L, B) int, -1 pad
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sequential pass over a batch, sentences strictly in order — the
     plain version of ``fullw2v_cuda`` (both forms)."""
-    _no_frontends(static_ids, bags)
+    check_frontends(tokens, static_ids, bags)
     lr = lr32(lr)
     toks_host = tokens.tolist()
+    sids = static_ids.tolist() if static_ids is not None else None
     for s, length in enumerate(lengths.tolist()):
         sentence_sgns_ref(w_in, w_out, tokens[s], negs[s], length, lr, w_f,
-                          tokens_host=toks_host[s])
+                          tokens_host=toks_host[s],
+                          static_id=sids[s] if sids is not None else -1,
+                          bags=bags[s] if bags is not None else None)
     return w_in, w_out
 
 
@@ -126,11 +216,15 @@ def batch_sgns_ref(
 
 def _sentence_sgns_tiled(w_in, w_out, tokens, toks, negs, length, lr,
                          uniq, scatter, strict, *, w_f: int, tile: int,
-                         gemm_windows: int) -> None:
+                         gemm_windows: int, static_id: int = -1,
+                         bags: Optional[torch.Tensor] = None) -> None:
     """One sentence of the tiled schedule, in place. ``tokens``/``negs``/
-    ``uniq``/``scatter`` are device rows, ``toks``/``strict`` host lists
-    (``ucount`` is implied by ``scatter``: the plain version reads only
-    the columns the slots map to)."""
+    ``uniq``/``scatter``/``bags`` are device rows, ``toks``/``strict``
+    host lists (``ucount`` is implied by ``scatter``: the plain version
+    reads only the columns the slots map to). ``static_id``/``bags`` as in
+    :func:`sentence_sgns_ref`; a fused group sees the doc row's value at
+    the group's start in each of its windows (the same bounded staleness
+    as the output rows)."""
     G = gemm_windows
     L, N = negs.shape
     m = N + 1
@@ -139,11 +233,12 @@ def _sentence_sgns_tiled(w_in, w_out, tokens, toks, negs, length, lr,
     r_seq = 2 * w_f + 1            # sequential store distance
     dev = w_in.device
     offsets = _offsets(w_f, dev)
-    buf = torch.zeros((rt, w_in.shape[1]), dtype=w_in.dtype, device=dev)
+    ring = _Ring(w_in, toks, rt, bags)
+    buf = ring.buf
+    doc = _Doc(w_in, static_id)
 
-    for q in range(min(w_f, L)):                  # preload
-        if q < length:
-            buf[q % rt] = w_in[toks[q]]
+    for q in range(min(w_f, length)):             # preload
+        ring.load(q)
 
     # ring advance pieces — slot modulus rt (rows stay resident for the
     # whole tile) but the sequential kernel's store schedule
@@ -151,12 +246,12 @@ def _sentence_sgns_tiled(w_in, w_out, tokens, toks, negs, length, lr,
         q = t + w_f
         old = q - r_seq
         if t < length and q < length and old >= 0:
-            w_in[toks[old]] = buf[old % rt]
+            ring.store(old)
 
     def load(t):
         q = t + w_f
         if t < length and q < length:
-            buf[q % rt] = w_in[toks[q]]
+            ring.load(q)
 
     for i in range(len(strict)):
         t0 = i * tile
@@ -174,9 +269,15 @@ def _sentence_sgns_tiled(w_in, w_out, tokens, toks, negs, length, lr,
                 p = t + offsets
                 mask = (p >= 0) & (p < length)
                 slots = torch.remainder(p.clamp(0, L - 1), rt)
+                ctx = buf[slots]
                 out_idx = torch.cat([tokens[t:t + 1].long(), negs[t].long()])
-                d_ctx, d_out = window_delta(buf[slots], w_out[out_idx], mask,
-                                            lr)
+                if doc.on:
+                    ctx = torch.cat([ctx, doc.val[None]])
+                    mask = torch.cat([mask, mask.new_ones(1)])
+                d_ctx, d_out = window_delta(ctx, w_out[out_idx], mask, lr)
+                if doc.on:
+                    doc.val += d_ctx[-1]
+                    d_ctx = d_ctx[:-1]
                 buf.index_add_(0, slots, d_ctx)
                 w_out.index_add_(0, out_idx, d_out)
             continue
@@ -212,18 +313,36 @@ def _sentence_sgns_tiled(w_in, w_out, tokens, toks, negs, length, lr,
             win_c = torch.arange(wn * m, device=dev) // m
             row_valid = p_ok & (base + win_r < length)
             col_valid = base + win_c < length
+            if doc.on:
+                # one doc row per window of the group, after the position
+                # rows, each holding the doc row's value at the group start
+                wins = torch.arange(wn, device=dev)
+                ctx = torch.cat([ctx, doc.val.expand(wn, -1)])
+                win_r = torch.cat([win_r, wins])
+                row_valid = torch.cat([row_valid, base + wins < length])
             label = (torch.arange(wn * m, device=dev) % m == 0).to(ctx.dtype)
             mask = (row_valid[:, None] & col_valid[None, :]
                     & (win_r[:, None] == win_c[None, :]))
 
-            corr = ctx @ exp.T                                 # (wn*k, wn*m)
+            corr = ctx @ exp.T                                 # (rows, wn*m)
             g = lr * (label[None, :] - stable_sigmoid(corr))
             g = torch.where(mask, g, torch.zeros_like(g))
-            d_ctx = g @ exp                                    # (wn*k, d)
+            d_ctx = g @ exp                                    # (rows, d)
             d_out = g.T @ ctx                                  # (wn*m, d)
 
-            buf.index_add_(0, slots, d_ctx)       # repeats accumulate
-            u_vals.index_add_(0, sc, d_out)
+            if doc.on:
+                doc.val += d_ctx[wn * k:].sum(0)
+                d_ctx = d_ctx[:wn * k]
+            # repeats accumulate, one window at a time: a window's slots
+            # and columns are distinct, so no launch adds two different
+            # values to one row (CUDA's index_add_ adds repeated indices
+            # with atomics, in no fixed order; the CPU adds in index order
+            # either way)
+            for w in range(wn):
+                buf.index_add_(0, slots[w * k:(w + 1) * k],
+                               d_ctx[w * k:(w + 1) * k])
+                u_vals.index_add_(0, sc[w * m:(w + 1) * m],
+                                  d_out[w * m:(w + 1) * m])
 
             for w in range(1, wn):                # deferred group stores
                 store(base + w)
@@ -232,7 +351,8 @@ def _sentence_sgns_tiled(w_in, w_out, tokens, toks, negs, length, lr,
     for kk in range(r_seq):                       # flush, increasing order
         p = length - r_seq + kk
         if p >= 0:
-            w_in[toks[p]] = buf[p % rt]
+            ring.store(p)
+    doc.write_back(w_in)
 
 
 def batch_sgns_tiled_ref(
@@ -249,20 +369,23 @@ def batch_sgns_tiled_ref(
     ucount: torch.Tensor,    # (S, nt) int32
     strict: torch.Tensor,    # (S, nt) int32
     gemm_windows: int = 0,   # windows per GEMM group; 0 -> min(tile, 4)
-    static_ids=None,
-    bags=None,
+    static_ids: Optional[torch.Tensor] = None,   # (S,) int, -1 = none
+    bags: Optional[torch.Tensor] = None,         # (S, L, B) int, -1 pad
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sequential pass over a batch with the tiled (T windows per step)
     semantics — the plain version of ``fullw2v_cuda_tiled``."""
-    _no_frontends(static_ids, bags)
+    check_frontends(tokens, static_ids, bags)
     G = resolve_gemm_windows(tile, gemm_windows)
     lr = lr32(lr)
     toks_host = tokens.tolist()
     strict_host = strict.tolist()
+    sids = static_ids.tolist() if static_ids is not None else None
     for s, length in enumerate(lengths.tolist()):
         _sentence_sgns_tiled(w_in, w_out, tokens[s], toks_host[s], negs[s],
                              length, lr, uniq[s], scatter[s], strict_host[s],
-                             w_f=w_f, tile=tile, gemm_windows=G)
+                             w_f=w_f, tile=tile, gemm_windows=G,
+                             static_id=sids[s] if sids is not None else -1,
+                             bags=bags[s] if bags is not None else None)
     return w_in, w_out
 
 

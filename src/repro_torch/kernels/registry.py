@@ -24,8 +24,10 @@ storage dtypes, frontends) so that resolution accepts and rejects the same
 combinations. The plain versions take every storage dtype; the CUDA
 kernels take ``float32`` and ``bfloat16``, as the reference's Pallas
 kernels do, so an int8 cold tail on the GPU runs under the f32 master
-copy (``master=1``). Frontend steps, which the port does not run yet,
-raise where they are built (``StepInputs.from_batch``).
+copy (``master=1``). Only the plain versions declare the frontend
+features (``static_ctx``, ``bags``), as only the reference's jnp versions
+do: ``auto`` with frontend features resolves to them on the GPU too, and a
+CUDA backend asked for by name raises.
 
 The implementations register themselves from ``repro_torch.kernels.ops``
 at import time; every registry query triggers that import lazily.
@@ -60,7 +62,10 @@ class StepInputs:
     batch's stochastic-rounding key for sub-f32 storage
     (``kernels.quant.round_key``, a pure function of ``(seed, epoch,
     batch_index)``), a host ``uint32[2]`` array: keying a step costs no
-    device sync either."""
+    device sync either. ``static_ctx``/``bags`` carry the workload
+    frontends' extensions (DESIGN.md §12): a per-sentence always-in-window
+    context row (doc2vec) and per-position subword bag members, both in
+    table-row space (working-table space on a vocab-sharded step)."""
     tokens: torch.Tensor                          # (S, L) int32
     negs: torch.Tensor                            # (S, L, N) int32
     lengths: torch.Tensor                         # (S,) int32
@@ -73,6 +78,8 @@ class StepInputs:
     bucket_ids: Optional[torch.Tensor] = None     # (n, n, C) int32, -1 pad
     bucket_pos: Optional[torch.Tensor] = None     # (n, n, C) int32, R pad
     round_key: Optional[np.ndarray] = None        # (2,) uint32, host
+    static_ctx: Optional[torch.Tensor] = None     # (S,) int32 doc rows, -1
+    bags: Optional[torch.Tensor] = None           # (S, L, B) int32, -1 pad
 
     @property
     def has_plan(self) -> bool:
@@ -83,6 +90,23 @@ class StepInputs:
     def has_vocab_shard(self) -> bool:
         """Whether this step carries a vocab-sharding exchange plan."""
         return self.cold_ids is not None
+
+    @property
+    def has_static_ctx(self) -> bool:
+        """Whether this step carries per-sentence static context rows."""
+        return self.static_ctx is not None
+
+    @property
+    def has_bags(self) -> bool:
+        """Whether this step carries per-position subword bag members."""
+        return self.bags is not None
+
+    @property
+    def frontends(self) -> Tuple[str, ...]:
+        """The frontend features this step carries, as
+        :func:`resolve` takes them."""
+        return ((("static_ctx",) if self.has_static_ctx else ())
+                + (("bags",) if self.has_bags else ()))
 
     @property
     def tile(self) -> int:
@@ -98,16 +122,12 @@ class StepInputs:
                    mesh=None) -> "StepInputs":
         """Lift a host :class:`~repro_torch.data.batching.Batch` (numpy)
         onto ``device``, carrying its tile plan along when one is
-        attached; under a ``mesh`` (``repro_torch.launch.mesh.DataMesh``)
-        only this rank's block of sentences. ``put`` (numpy array ->
-        device tensor) replaces the blocking copy, e.g. with the trainer's
-        pinned, non_blocking one."""
+        attached, and its frontend rows (``docs``, ``bags``); under a
+        ``mesh`` (``repro_torch.launch.mesh.DataMesh``) only this rank's
+        block of sentences. ``put`` (numpy array -> device tensor) replaces
+        the blocking copy, e.g. with the trainer's pinned, non_blocking
+        one."""
         from repro_torch.data.batching import rank_rows
-        if getattr(batch, "docs", None) is not None or \
-                getattr(batch, "bags", None) is not None:
-            raise NotImplementedError(
-                "doc2vec/subword batches (Batch.docs, Batch.bags) arrive "
-                "with a later slice of the torch port")
         rows = rank_rows(batch.tokens.shape[0], mesh)
         put = put or (lambda a: torch.from_numpy(
             np.ascontiguousarray(a)).to(device))
@@ -118,9 +138,22 @@ class StepInputs:
                       plan_scatter=put(p.scatter[rows]),
                       plan_ucount=put(p.ucount[rows]),
                       plan_strict=put(p.strict[rows]))
+        kw.update(frontend_inputs(batch, rows, put))
         return cls(tokens=put(batch.tokens[rows]), negs=put(batch.negs[rows]),
                    lengths=put(batch.lengths[rows]),
                    lr=torch.tensor(float(lr), dtype=torch.float32), **kw)
+
+
+def frontend_inputs(batch, rows: slice, put: Callable) -> dict:
+    """``static_ctx``/``bags`` for :class:`StepInputs` from a host batch or
+    exchange plan's ``docs``/``bags`` (rows ``rows``), the ones it
+    carries."""
+    kw = {}
+    if getattr(batch, "docs", None) is not None:
+        kw["static_ctx"] = put(batch.docs[rows])
+    if getattr(batch, "bags", None) is not None:
+        kw["bags"] = put(batch.bags[rows])
+    return kw
 
 
 @dataclasses.dataclass(frozen=True)

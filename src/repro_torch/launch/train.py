@@ -17,11 +17,12 @@ N host devices; rank 0 prints. ``--prefetch-workers/--prefetch-depth
 (``repro_torch.data.prefetch``), ``--ckpt-dir/--ckpt-every`` checkpoint
 and resume, and ``--max-restarts/--step-timeout/--health-every
 /--reset-after`` train under the recovery supervisor
-(``TrainSession.train_resilient``, one rank only). Workloads other than
-w2v arrive with a later slice of the port: ``--workload`` is accepted by
-the parser and exits with an error that says so. Data parallelism
-without vocab sharding has no flag, as in the reference: it runs through
-``TrainSession(mesh=...)``.
+(``TrainSession.train_resilient``, one rank only). ``--workload`` takes
+every frontend of ``repro_torch.frontends`` (``w2v``, ``doc2vec``,
+``node2vec``, ``subword``), built from the reference's flags; doc2vec and
+subword steps run the plain versions, which alone consume their doc rows
+and bags. Data parallelism without vocab sharding has no flag, as in the
+reference: it runs through ``TrainSession(mesh=...)``.
 
 The module imports no torch at top level: process prefetch workers and
 the ranks import the ``python -m`` module as their ``__mp_main__``.
@@ -34,8 +35,6 @@ import sys
 from typing import List, Optional
 
 import numpy as np
-
-WORKLOADS = ("w2v", "doc2vec", "node2vec", "subword")
 
 
 def _ranks(args) -> int:
@@ -51,11 +50,6 @@ def _ranks(args) -> int:
 
 
 def run_w2v(args) -> int:
-    if args.workload != "w2v":
-        print(f"error: --workload {args.workload} arrives with a later "
-              f"slice of the torch port; run it with `python -m "
-              f"repro.launch.train` meanwhile", file=sys.stderr)
-        return 2
     n = _ranks(args)
     if n == 1:
         return train_rank(None, args)
@@ -66,10 +60,10 @@ def run_w2v(args) -> int:
 def train_rank(mesh, args) -> int:
     """Train on this rank of ``mesh`` (``None``: the only process); rank
     0 prints."""
+    from repro_torch import frontends
     from repro_torch.configs.w2v import W2VConfig
     from repro_torch.core.quality import evaluate
     from repro_torch.core.trainer import TrainSession
-    from repro_torch.data.corpus import synthetic_cluster_corpus
     from repro_torch.data.prefetch import AsyncBatchingPipeline, make_pipeline
 
     def say(*a) -> None:
@@ -90,14 +84,21 @@ def train_rank(mesh, args) -> int:
                     vocab_shard=bool(args.vocab_shard),
                     hot_vocab_frac=args.hot_vocab_frac,
                     tables=args.tables)
-    # the w2v workload's corpus, built as repro.frontends' w2v frontend
-    # builds it
-    corpus = synthetic_cluster_corpus(
-        n_clusters=args.clusters,
-        words_per_cluster=max(args.vocab // args.clusters, 1),
-        n_sentences=args.sentences, mean_len=24, seed=0)
+    # every workload rides the same engine: the frontend adapts a corpus
+    # (words, graph walks, documents, subword bags) into the batch schema
+    # and attaches its table extras to the pipeline (DESIGN.md §12)
+    workload = frontends.get(args.workload).build(
+        cfg, vocab=args.vocab, clusters=args.clusters,
+        sentences=args.sentences,
+        p=args.node2vec_p, q=args.node2vec_q,
+        walk_length=args.walk_length, walks_per_node=args.walks_per_node,
+        docs=args.docs, buckets=args.subword_buckets, seed=0)
+    cfg, corpus = workload.cfg, workload.corpus
     pipe = make_pipeline(corpus, cfg)
-    say(f"workload=w2v vocab={pipe.vocab.size} "
+    workload.attach(pipe)
+    extras = (f" (+{pipe.extra_rows} {args.workload} rows)"
+              if pipe.extra_rows else "")
+    say(f"workload={args.workload} vocab={pipe.vocab.size}{extras} "
         f"params={2 * pipe.table_rows * cfg.dim / 1e6:.1f}M "
         f"words/epoch={pipe.epoch_words}")
     if isinstance(pipe, AsyncBatchingPipeline):
@@ -154,16 +155,19 @@ def train_rank(mesh, args) -> int:
                       .numpy().tobytes())
     say(f"final_digest={digest.hexdigest()}")
     emb = trainer.embeddings()          # a collective on a sharded mesh
-    inv = np.zeros(pipe.vocab.size, dtype=int)
-    for w, i in pipe.vocab.ids.items():
-        inv[i] = corpus.clusters[w]
-    if mesh is None or mesh.rank == 0:
+    if corpus.clusters is not None and (mesh is None or mesh.rank == 0):
+        inv = np.zeros(pipe.vocab.size, dtype=int)
+        for w, i in pipe.vocab.ids.items():
+            inv[i] = corpus.clusters[w]
+        # frontend extras (doc rows, n-gram buckets) sit past the
+        # vocabulary: cluster quality is a word/node-vector property
         metrics = evaluate(emb[:pipe.vocab.size], inv)
         say("quality:", {k: round(v, 4) for k, v in metrics.items()})
     return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from repro_torch import frontends
     from repro_torch.kernels import registry
 
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
@@ -172,14 +176,25 @@ def build_parser() -> argparse.ArgumentParser:
     w.add_argument("--device", default=None,
                    help="cuda, cuda:N or cpu (default: the GPU; fails "
                         "without one)")
-    w.add_argument("--workload", default="w2v", choices=WORKLOADS,
-                   help="workload frontend (only w2v in this slice)")
-    w.add_argument("--node2vec-p", type=float, default=1.0)
-    w.add_argument("--node2vec-q", type=float, default=0.5)
-    w.add_argument("--walk-length", type=int, default=40)
-    w.add_argument("--walks-per-node", type=int, default=10)
-    w.add_argument("--docs", type=int, default=64)
-    w.add_argument("--subword-buckets", type=int, default=4096)
+    w.add_argument("--workload", default="w2v", choices=frontends.names(),
+                   help="workload frontend (DESIGN.md §12): plain w2v, "
+                        "node2vec random walks, PV-DM doc2vec, or "
+                        "fastText-style subword bags")
+    w.add_argument("--node2vec-p", type=float, default=1.0,
+                   help="node2vec return parameter (1/p weight on "
+                        "backtracking to the previous node)")
+    w.add_argument("--node2vec-q", type=float, default=0.5,
+                   help="node2vec in-out parameter (1/q weight on "
+                        "exploring away; q<1 favors communities)")
+    w.add_argument("--walk-length", type=int, default=40,
+                   help="node2vec: nodes per walk")
+    w.add_argument("--walks-per-node", type=int, default=10,
+                   help="node2vec: walks started from each node")
+    w.add_argument("--docs", type=int, default=64,
+                   help="doc2vec: number of synthetic documents")
+    w.add_argument("--subword-buckets", type=int, default=4096,
+                   help="subword: hashed n-gram bucket rows appended past "
+                        "the vocabulary")
     w.add_argument("--vocab", type=int, default=8192)
     w.add_argument("--clusters", type=int, default=64)
     w.add_argument("--sentences", type=int, default=20000)

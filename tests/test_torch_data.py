@@ -98,6 +98,17 @@ def test_later_slice_branches_raise():
                                      placement=placement)
     assert batch.exchange is not None
     assert batch.exchange.placement == placement
-    with pytest.raises(NotImplementedError, match="later slice"):
-        batching.finalize_packed(packed, pipe.cfg, pipe.sampler, 0,
-                                 bag_table=np.zeros((1, 1), np.int32))
+    # nor does a subword bag table: it materializes the batch's bags as the
+    # reference does (the frontends' parity is in test_torch_frontends.py)
+    table = np.arange(pipe.vocab.size * 3, dtype=np.int32).reshape(-1, 3)
+    batch = batching.finalize_packed(packed, pipe.cfg, pipe.sampler, 0,
+                                     bag_table=table)
+    ref_pipe = ref_batching.BatchingPipeline(
+        ref_corpus.synthetic_cluster_corpus(n_clusters=2, words_per_cluster=8,
+                                            n_sentences=20, seed=0),
+        ref_smoke())
+    want = ref_batching.finalize_packed(
+        next(ref_pipe._packed(None, 0)), ref_pipe.cfg, ref_pipe.sampler, 0,
+        bag_table=table)
+    assert batch.bags.tobytes() == want.bags.tobytes()
+    assert batch.bags.shape == batch.tokens.shape + (3,)

@@ -37,6 +37,8 @@ def test_import_leaves_jax_and_reference_unloaded():
             "repro_torch.train.")))
         print("KERNELS", sorted(m for m in mods if m.startswith(
             "repro_torch.kernels.")))
+        print("SLICE", sorted(m for m in mods if m.startswith(
+            ("repro_torch.frontends", "repro_torch.core."))))
         print("BAD", bad)
     """.format(repo=REPO)
     out = run_subprocess(code, timeout=300)
@@ -52,6 +54,10 @@ def test_import_leaves_jax_and_reference_unloaded():
     for mod in ("quant", "tables", "ops", "registry"):
         assert f"'repro_torch.kernels.{mod}'" in out.stdout, out.stdout
     assert "'repro_torch.data.prefetch'" not in out.stdout  # not train.*
+    for mod in ("frontends", "frontends.registry", "frontends.node2vec",
+                "frontends.doc2vec", "frontends.subword", "core.window",
+                "core.baselines"):
+        assert f"'repro_torch.{mod}'" in out.stdout, out.stdout
 
 
 def test_worker_import_path_is_torch_free():
@@ -101,3 +107,53 @@ def _imported_roots(path: pathlib.Path):
 def test_no_source_imports_jax_or_reference(path):
     roots = set(_imported_roots(path))
     assert not roots & {"jax", "jaxlib", "repro", "ml_dtypes"}, sorted(roots)
+
+
+def test_slice_modules_leave_jax_and_reference_unloaded():
+    """The frontends, the ring-lifetime state machine and the baselines
+    import neither jax nor the reference (the baselines import torch)."""
+    code = """
+        import sys
+        import repro_torch.frontends, repro_torch.core.window
+        import repro_torch.core.baselines
+        from repro_torch.frontends import doc2vec, node2vec, subword
+        from repro_torch import frontends
+        print("NAMES", ",".join(frontends.names()))
+        print("BAD", sorted(n for n in sys.modules
+                            if n.split(".")[0] in ("jax", "repro",
+                                                   "ml_dtypes")))
+    """
+    out = run_subprocess(code, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert "NAMES w2v,doc2vec,node2vec,subword" in out.stdout, out.stdout
+
+
+def test_frontend_worker_import_path_is_torch_free():
+    """A process prefetch worker of a frontend workload — the walks, the
+    documents and the bag table built by ``repro_torch.frontends``, the
+    finalize path with a bag table — loads neither torch nor jax nor the
+    reference."""
+    code = """
+        import sys
+        from repro_torch import frontends
+        from repro_torch.configs.w2v import smoke
+        from repro_torch.data import prefetch
+        for name in ("node2vec", "doc2vec", "subword"):
+            w = frontends.get(name).build(
+                smoke(sentences_per_batch=16, tile_windows=4),
+                communities=4, nodes_per=6, walks_per_node=1, docs=4,
+                vocab=64, clusters=4, sentences=40, buckets=32)
+            pipe = prefetch.AsyncBatchingPipeline(w.corpus, w.cfg, workers=1)
+            w.attach(pipe)
+            packed = next(pipe._packed(16, 0))
+            prefetch._proc_init(w.cfg, pipe.sampler, None, pipe.bag_table)
+            batch = prefetch._proc_finalize(packed, 0)
+            assert (batch.docs is not None) == (name == "doc2vec")
+            assert (batch.bags is not None) == (name == "subword")
+        print("BAD", sorted(n for n in sys.modules
+                            if n.split(".")[0] in ("torch", "jax", "repro")))
+    """
+    out = run_subprocess(code, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout

@@ -212,6 +212,16 @@ def test_tiled_scratch_rows():
 @pytest.mark.parametrize("kw", [dict(static_ids=torch.zeros(2)),
                                 dict(bags=torch.zeros(2))])
 def test_frontend_extensions_raise(kw):
+    """The frontend extensions run since the frontends slice (their parity
+    is in test_torch_frontends.py); malformed ones — float doc rows, bags
+    without the (S, L, B) shape — raise before any table changes, in both
+    plain versions."""
     batch = _torch(*_make(5, 20, 128, 2, 4, 2, [4, 4]))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    before = [t.clone() for t in batch[:2]]
+    with pytest.raises(ValueError, match="must be an int32 or int64"):
         ref.batch_sgns_ref(*batch, 0.05, 1, **kw)
+    plan = plan_tiles(*(t.numpy() for t in batch[2:]), 2)
+    with pytest.raises(ValueError, match="must be an int32 or int64"):
+        ref.batch_sgns_tiled_ref(*batch, 0.05, 1, 2, *_torch(
+            plan.uniq, plan.scatter, plan.ucount, plan.strict), **kw)
+    assert all(torch.equal(a, b) for a, b in zip(batch[:2], before))
