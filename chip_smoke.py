@@ -5,7 +5,7 @@ main path and times the kernels.
 
     python3 chip_smoke.py [--seed 0] [--sentences-per-batch 10000]
 
-About 10 min on an H100, most of it in the plain versions of phases 5
+About 11 min on an H100, most of it in the plain versions of phases 5
 and 11.
 
 Phases (each prints one line; any failure raises and the script exits
@@ -131,6 +131,34 @@ non-zero):
               the pWord2Vec-like baseline (``core.baselines.matrix_sgns``)
               beside K2 at ``bench_quality``'s shape (4 epochs): their
               separation ratio, no gate.
+
+12. serve   — the serving stack (``repro_torch.serve``; no kernel: the
+              scores are one f32 ``torch.matmul`` with TF32 off, the
+              ranking plain torch). (a) Checkpoints of phase 4's T=1 auto
+              session (K2, replicated), its one-shard T=8 session (K4,
+              split) and phase 9's int8 session, each loaded by
+              ``EmbeddingIndex.load`` on the card and indexed live by
+              ``from_session``: nn and analogy top-10 of 256 random ids
+              plus the hot/cold boundary ids, ids equal to ``dense_topk``
+              on the card and to the live index, scores within 1e-6; a
+              float64 host recompute within 1e-5 (ids equal but at near
+              ties under 1e-6, counted); the int8 tail decoded on the
+              card equals the CPU's bit for bit. (b) A seeded 2,000,000 ×
+              128 table (hot 10%) behind ``EmbeddingServer`` at batch 32
+              and 256 (deadline 2 ms, k=10) from 8 client threads, 2,000
+              nn queries each: qps, p50/p99 µs, device ms per batch (CUDA
+              events) beside its bound, and the product, the ranking key
+              and ``torch.topk`` timed apart; a second publish
+              hot-swapped under load (stage ms, swap ms, p99 during it);
+              16 answers against the f64 host oracle. (c) ``run_serve_chaos`` with
+              the ``ci`` schedule and at d=128, V=65,532, 2 shards: no
+              dropped, torn or failed query, every crash fired, the last
+              publish served. (d) 2 and 4 gloo ranks on the card serve
+              (a)'s split checkpoint re-striped, rank 0's server with
+              followers: every answer equals the one-rank run's; a
+              publish swaps on every rank, one that rank 1 alone fails to
+              load on none. (e) ``python -m repro_torch.launch.serve
+              --check-oracle`` on (a)'s split checkpoint.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the repository's ``src/`` beside it, the script fails before
@@ -2012,6 +2040,593 @@ def phase_frontends(torch, np, args, f32_8_epochs: float) -> dict:
     return dict(launches=launches, plain=plain, baselines=base)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: serving the trained tables (repro_torch.serve)
+# ---------------------------------------------------------------------------
+
+SERVE_K = 10
+SERVE_QUERIES = 256
+# (b): a seeded 2,000,000 x 128 f32 table (phase 11's subword row count),
+# split at a 10% head, behind EmbeddingServer from 8 client threads
+SERVE_ROWS, SERVE_HOT_FRAC = 2_000_000, 0.1
+SERVE_BATCHES = (32, 256)
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_WINDOW = 8, 2000, 64
+
+
+def _serve_queries(np, seed: int, v: int, hot: int):
+    """256 random nn ids plus the boundary ids, and 256 analogy rows."""
+    rng = np.random.default_rng(seed)
+    ids = np.concatenate([rng.integers(v, size=SERVE_QUERIES),
+                          [0, hot - 1, hot, hot + 1, v - 1]])
+    tri = rng.integers(v, size=(SERVE_QUERIES, 3))
+    return ids.astype(np.int32), tri.astype(np.int32)
+
+
+def _f64_check(np, emb, q, mode: str, got_ids, got_sc) -> int:
+    """The card's top-k against a float64 recompute on the host from the
+    same normalized table: every score within 1e-5 of the f64 score of its
+    id, every id equal to the f64 ranking's except where the two f64
+    scores differ by less than 1e-6 (a near tie); returns those places."""
+    e = emb.astype(np.float64)
+    if mode == "nn":
+        qv, excl = e[q], q[:, None]
+    else:
+        qv = e[q[:, 0]] - e[q[:, 1]] + e[q[:, 2]]
+        qv /= np.maximum(np.linalg.norm(qv, axis=1, keepdims=True), 1e-12)
+        excl = q
+    sc = qv @ e.T
+    sc[np.arange(len(q))[:, None], excl] = -np.inf
+    want = np.argsort(-sc, axis=1, kind="stable")[:, :got_ids.shape[1]]
+    got64 = np.take_along_axis(sc, got_ids.astype(np.int64), 1)
+    err = float(np.abs(got_sc - got64).max())
+    if err > 1e-5:
+        raise AssertionError(f"{mode}: a score is {err:.3e} from its f64 "
+                             f"recompute (limit 1e-5)")
+    diff = got_ids != want
+    far = diff & (np.abs(got64 - np.take_along_axis(sc, want, 1)) >= 1e-6)
+    if far.any():
+        raise AssertionError(f"{mode}: {int(far.sum())} ids differ from the "
+                             f"f64 ranking by more than a near tie")
+    return int(diff.sum())
+
+
+def _same_answers(np, name, got, want, tol=1e-6) -> None:
+    gi, gs = (np.asarray(x) for x in got)
+    wi, ws = (np.asarray(x) for x in want)
+    if not np.array_equal(gi, wi):
+        bad = np.argwhere(gi != wi)[:4].tolist()
+        raise AssertionError(f"{name}: ids differ at {bad}")
+    err = float(np.abs(gs - ws).max())
+    if err > tol:
+        raise AssertionError(f"{name}: scores {err:.3e} apart (limit "
+                             f"{tol})")
+
+
+def serve_trained(torch, np, args, sessions, tmp) -> dict:
+    """(a) Checkpoints of the trained sessions served through
+    ``EmbeddingIndex.load`` on the card, and ``from_session`` on the live
+    sessions; returns the split checkpoint's directory and step."""
+    from repro_torch.serve import EmbeddingIndex, dense_topk, make_topk_fn
+    from repro_torch.kernels import quant
+    from repro_torch.train import checkpoint as ckpt
+
+    dirs = {}
+    for name, sess in sessions:
+        d = dirs[name] = os.path.join(tmp, name.split()[0])
+        sess.ckpt_dir = d
+        t0 = time.perf_counter()
+        sess.save_checkpoint()
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        idx = EmbeddingIndex.load(d, device="cuda:0")
+        load_ms = (time.perf_counter() - t0) * 1e3
+        live = EmbeddingIndex.from_session(sess)
+        emb = idx.dense_embeddings()
+        dense_dev = torch.from_numpy(emb).to(idx.device)
+        hot = idx.placement.hot
+        ids, tri = _serve_queries(np, args.seed, idx.vocab_size, hot)
+        near, ms = {}, {}
+        for mode, q in (("nn", ids), ("analogy", tri)):
+            fn = make_topk_fn(idx.placement, None, mode=mode, k=SERVE_K)
+            got = tuple(t.cpu().numpy() for t in fn(idx.hot, idx.cold, q))
+            _same_answers(np, f"{name} {mode} vs dense_topk on the card",
+                          got, dense_topk(dense_dev, q, SERVE_K, mode))
+            lfn = make_topk_fn(live.placement, None, mode=mode, k=SERVE_K)
+            _same_answers(np, f"{name} {mode} from_session vs load", got,
+                          tuple(t.cpu().numpy() for t in lfn(
+                              live.hot, live.cold, q)))
+            near[mode] = _f64_check(np, emb, q, mode, *got)
+            qd = torch.from_numpy(q).to(idx.device)
+            ms[mode] = _time_ms(torch, lambda: fn(idx.hot, idx.cold, qd), 5)
+        extra = {}
+        leaves, _ = ckpt.peek(d)
+        if "scale_in" in leaves:
+            # the int8 tail decoded on the card against the CPU, bit for
+            # bit, and the two staged indexes within 1e-6
+            spec = {k: ckpt.ArraySpec(tuple(leaves[k]["shape"]),
+                                      leaves[k]["dtype"])
+                    for k in ("cold_in", "scale_in")}
+            dec = [quant.int8_decode(t["cold_in"], t["scale_in"]).cpu()
+                   for t in (ckpt.restore(d, spec, device=dv)[0]
+                             for dv in ("cuda:0", "cpu"))]
+            if not torch.equal(dec[0], dec[1]):
+                raise AssertionError(f"{name}: int8 decode on the card "
+                                     f"differs from the CPU's")
+            cpu = EmbeddingIndex.load(d, device="cpu")
+            extra = dict(int8_decode="card==cpu bit for bit",
+                         index_card_vs_cpu=float(np.abs(
+                             cpu.dense_embeddings() - emb).max()))
+            if extra["index_card_vs_cpu"] > 1e-6:
+                raise AssertionError(f"{name}: staged index card vs CPU "
+                                     f"{extra['index_card_vs_cpu']:.3e}")
+        _line("serve", table=json.dumps(name), step=idx.step,
+              vocab=idx.vocab_size, hot=hot, dim=idx.dim,
+              leaves=",".join(sorted(leaves)), save_ms=f"{save_ms:.1f}",
+              load_ms=f"{load_ms:.1f}",
+              nn_ms=f"{ms['nn']:.3f}", analogy_ms=f"{ms['analogy']:.3f}",
+              batch=len(ids), k=SERVE_K,
+              parity="ids==dense_topk(card) scores<=1e-6; "
+                     "from_session==load",
+              f64_near_ties=f"nn:{near['nn']},analogy:{near['analogy']}",
+              **extra)
+    return dirs
+
+
+class _TopkSpy:
+    """Times, with CUDA events, every top-k the server dispatches
+    (``repro_torch.serve.server._topk``, which ends in the answers' copy
+    to the host)."""
+
+    def __init__(self, torch):
+        from repro_torch.serve import server
+        self.torch, self.mod, self.real = torch, server, server._topk
+        self.ms, self.rows = [], []
+
+    def __enter__(self):
+        torch = self.torch
+
+        def timed(fns, index, kind, k, ids):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = self.real(fns, index, kind, k, ids)
+            b.record()
+            b.synchronize()
+            self.ms.append(a.elapsed_time(b))
+            self.rows.append(len(ids))
+            return out
+        self.mod._topk = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._topk = self.real
+
+
+def _drive(np, server, seed: int, t_log=None):
+    """8 client threads, each keeping SERVE_WINDOW one-id nn requests in
+    flight until it has asked SERVE_PER_CLIENT; returns the wall seconds
+    and a sample of (ids, result) to check. ``t_log`` collects (submit
+    time, latency µs) of every request."""
+    import threading
+
+    sample, errors = [], []
+
+    def client(c):
+        try:
+            rng = np.random.default_rng(seed * 100 + c)
+            ids = rng.integers(SERVE_ROWS, size=SERVE_PER_CLIENT)
+            for at in range(0, SERVE_PER_CLIENT, SERVE_WINDOW):
+                chunk = ids[at:at + SERVE_WINDOW].astype(np.int32)
+                reqs = [(time.perf_counter(), server.submit("nn", [i]))
+                        for i in chunk]
+                res = [(t, r.wait(120.0)) for t, r in reqs]
+                if t_log is not None:
+                    t_log.extend((t, x.latency_us) for t, x in res)
+                if at == 0:
+                    sample.append((chunk[:1], res[0][1]))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serving clients failed: {errors[:2]}")
+    return wall, sample
+
+
+def serve_parts(torch, np, idx) -> dict:
+    """Device ms of each part of one batch's top-k over the big index, at
+    each batch size (CUDA events, 5 runs): the product, the int64 ranking
+    key, ``torch.topk`` over the keys, and the whole function."""
+    from repro_torch.serve import make_topk_fn
+    from repro_torch.serve.query import _joined, _order_key, _scores
+
+    table = _joined(idx.hot, idx.cold)
+    gids = torch.arange(table.shape[0], dtype=torch.int32,
+                        device=table.device)
+    out = {}
+    for b in SERVE_BATCHES:
+        ids = torch.from_numpy(np.random.default_rng(b).integers(
+            idx.vocab_size, size=b).astype(np.int32)).to(table.device)
+        q = table[ids.long()]
+        sc = _scores(q, table)
+        key = _order_key(sc, gids)
+        fn = make_topk_fn(idx.placement, None, mode="nn", k=SERVE_K)
+        out[b] = parts = dict(
+            product=_time_ms(torch, lambda: _scores(q, table), 5),
+            key=_time_ms(torch, lambda: _order_key(sc, gids), 5),
+            topk=_time_ms(torch, lambda: torch.topk(
+                key, SERVE_K, dim=-1, largest=False), 5),
+            whole=_time_ms(torch, lambda: fn(idx.hot, idx.cold, ids), 5))
+        del sc, key
+        _line("serve", parts=f"B={b} V={idx.vocab_size}", **{
+            f"{k}_ms": f"{v:.3f}" for k, v in parts.items()})
+    return out
+
+
+def serve_load(torch, np, args, tmp) -> dict:
+    """(b) A 2,000,000-row table behind EmbeddingServer at batch 32 and
+    256, then a second publish hot-swapped while queries flow."""
+    from repro_torch.distributed.vocab_placement import VocabPlacement
+    from repro_torch.serve import EmbeddingServer, SnapshotWatcher
+    from repro_torch.serve.index import EmbeddingIndex
+    from repro_torch.train import checkpoint as ckpt
+
+    d = os.path.join(tmp, "big")
+    dim = 128
+    pl = VocabPlacement(vocab_size=SERVE_ROWS,
+                        hot=int(SERVE_HOT_FRAC * SERVE_ROWS), n_shards=1)
+    tables = {1: np.random.default_rng(args.seed + 12).standard_normal(
+        (SERVE_ROWS, dim), dtype=np.float32)}
+
+    def publish(step):
+        h, c = pl.split(tables[step])
+        t0 = time.perf_counter()
+        ckpt.save(d, step, {"hot_in": h, "cold_in": c},
+                  extra={"vocab_shard": pl.to_extra(), "batches_seen": step})
+        return time.perf_counter() - t0
+
+    stage_ms, flips = [], {}
+
+    def loader(*a, **kw):
+        t0 = time.perf_counter()
+        idx = EmbeddingIndex.load(*a, **kw)
+        stage_ms.append((time.perf_counter() - t0) * 1e3)
+        return idx
+
+    publish_s = publish(1)
+    nbytes = SERVE_ROWS * dim * 4
+    watcher = SnapshotWatcher(d, poll_s=0.05, loader=loader, device="cuda:0",
+                              on_swap=lambda old, new: flips.setdefault(
+                                  new.step, time.perf_counter()))
+    watcher.start()
+    try:
+        watcher.wait_ready(timeout=300)
+        out = {}
+        for b in SERVE_BATCHES:
+            server = EmbeddingServer(watcher, batch_size=b, deadline_ms=2.0,
+                                     k=SERVE_K)
+            with _TopkSpy(torch) as spy:
+                wall, sample = _drive(np, server, b)
+            server.close()
+            lat = np.asarray(server.latencies_us, np.float64)
+            rows = float(np.mean(spy.rows))
+            bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                           2 * rows * SERVE_ROWS * dim / F32_FLOPS_PER_S) * 1e3
+            out[b] = dict(qps=server.served / wall,
+                          p50_us=float(np.percentile(lat, 50)),
+                          p99_us=float(np.percentile(lat, 99)),
+                          batches=server.batches, rows_per_batch=rows,
+                          device_ms=float(np.mean(spy.ms)),
+                          bound_ms=bound_ms)
+            _line("serve", load=f"V={SERVE_ROWS} d={dim}", batch_size=b,
+                  deadline_ms=2.0, k=SERVE_K, clients=SERVE_CLIENTS,
+                  queries=server.served, qps=f"{out[b]['qps']:.1f}",
+                  p50_us=f"{out[b]['p50_us']:.1f}",
+                  p99_us=f"{out[b]['p99_us']:.1f}", batches=server.batches,
+                  rows_per_batch=f"{rows:.2f}",
+                  device_ms_per_batch=f"{out[b]['device_ms']:.3f}",
+                  bound_ms=f"{bound_ms:.3f}",
+                  bound_by=("bytes" if nbytes / HBM_BYTES_PER_S >= 2 * rows
+                            * SERVE_ROWS * dim / F32_FLOPS_PER_S
+                            else "operations"))
+            checks = sample[:8]
+        out["parts"] = serve_parts(torch, np, watcher.current())
+        # a second publish while queries flow at batch 32
+        tables[2] = np.roll(tables[1], 1, axis=0)
+        server = EmbeddingServer(watcher, batch_size=SERVE_BATCHES[0],
+                                 deadline_ms=2.0, k=SERVE_K)
+        log = []
+        swap = {}
+
+        def publisher():
+            time.sleep(0.5)
+            swap["start"] = time.perf_counter()
+            swap["publish_s"] = publish(2)
+            swap["published"] = time.perf_counter()
+
+        import threading
+        pub = threading.Thread(target=publisher)
+        pub.start()
+        deadline = time.monotonic() + 300
+        while 2 not in flips and time.monotonic() < deadline:
+            _drive(np, server, 7, t_log=log)       # load until the flip
+        pub.join(300)
+        server.close()
+        if 2 not in flips:
+            raise AssertionError("the second publish was never swapped in")
+        # requests submitted from the publish's start to the flip, and
+        # apart: while the publisher writes, while the watcher stages
+        during = [us for t, us in log if swap["start"] <= t <= flips[2]]
+        writing = [us for t, us in log
+                   if swap["start"] <= t < swap["published"]]
+        staging = [us for t, us in log
+                   if swap["published"] <= t <= flips[2]]
+        swap_ms = (flips[2] - swap["published"]) * 1e3
+        # 16 answers against the host oracle: 8 from step 1, 8 from step 2
+        after = EmbeddingServer(watcher, batch_size=8, deadline_ms=2.0,
+                                k=SERVE_K)
+        q2 = np.random.default_rng(args.seed + 13).integers(
+            SERVE_ROWS, size=8).astype(np.int32)
+        r2 = after.neighbors(q2, timeout=60)
+        after.close()
+        near = 0
+        for step, q, ids, sc in (
+                [(1, np.concatenate([c[0] for c in checks]),
+                  np.concatenate([c[1].ids for c in checks]),
+                  np.concatenate([c[1].scores for c in checks]))]
+                + [(r2.snapshot_step, q2, r2.ids, r2.scores)]):
+            emb = tables[step] / np.maximum(np.linalg.norm(
+                tables[step], axis=1, keepdims=True), 1e-12)
+            near += _f64_check(np, emb, q, "nn", ids, sc)
+        if r2.snapshot_step != 2 or any(c[1].snapshot_step != 1
+                                        for c in checks):
+            raise AssertionError("answers from an unexpected snapshot")
+        def p99(x):
+            return float(np.percentile(x, 99)) if x else float("nan")
+
+        out["swap"] = dict(publish_s=swap["publish_s"],
+                           stage_ms=stage_ms[-1], swap_ms=swap_ms,
+                           p99_during_us=p99(during),
+                           queries_during=len(during))
+        _line("serve", swap=f"step 1 -> 2 under load (batch "
+                            f"{SERVE_BATCHES[0]})",
+              publish_s=f"{swap['publish_s']:.2f}",
+              first_publish_s=f"{publish_s:.2f}",
+              stage_ms=f"{stage_ms[-1]:.1f}",
+              first_stage_ms=f"{stage_ms[0]:.1f}",
+              swap_ms=f"{swap_ms:.1f}",
+              p99_during_us=f"{out['swap']['p99_during_us']:.1f}",
+              queries_during=len(during),
+              p99_while_writing_us=f"{p99(writing):.1f}",
+              p99_while_staging_us=f"{p99(staging):.1f}", oracle_checked=16,
+              f64_near_ties=near)
+        return out
+    finally:
+        watcher.stop()
+
+
+def serve_chaos(torch, args) -> dict:
+    """(c) The ``ci`` serve chaos schedule on the card, then the same at
+    d=128, V=65,532, hot 6,553, written at 2 shards."""
+    from repro_torch.serve.chaos import SCHEDULES, run_serve_chaos
+
+    out = {}
+    ci = SCHEDULES["ci"]
+    for name, sched in (("ci", ci), ("ci d=128 V=65532", dataclasses.replace(
+            ci, vocab_size=65_532, hot=6_553, dim=128, train_shards=2))):
+        rep = run_serve_chaos(sched, timeout=120.0, device="cuda:0")
+        want_final = 10 * len(sched.publish_at)
+        if (rep["dropped"] or rep["torn"] or rep["errors"]
+                or rep["crashes"] != len(sched.crash_at)
+                or rep["crashes_fired"] != len(sched.crash_at)
+                or rep["final_step_served"] != want_final):
+            raise AssertionError(f"serve chaos {name}: {rep}")
+        out[name] = rep
+        _line("serve", chaos=json.dumps(name), **{
+            k: rep[k] for k in ("queries", "dropped", "torn", "errors",
+                                "swaps", "crashes", "load_failures",
+                                "steps_served", "final_step_served",
+                                "batches", "wall_seconds")})
+    return out
+
+
+def serve_mesh_rank(mesh, swap_dir: str, first: int, seed: int) -> dict:
+    """(d) One rank of the serving mesh on the card: rank 0 serves (a)'s
+    split checkpoint re-striped to N ranks behind a watcher, the others
+    follow; a publish every rank loads, then one only rank 1 fails to
+    load. Returns rank 0's answers and every rank's step, swaps, load
+    failures, top-k and collective ms per batch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.vocab_placement import VocabPlacement
+    from repro_torch.serve import EmbeddingIndex, EmbeddingServer
+    from repro_torch.serve import server as server_mod
+    from repro_torch.serve.chaos import _publish
+    from repro_torch.serve.snapshot import SnapshotWatcher
+
+    timing = {"topk": [], "coll": []}
+    real_topk = server_mod._topk
+
+    def timed_topk(*a):
+        t0 = time.perf_counter()
+        out = real_topk(*a)
+        timing["topk"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed(op):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = op(*a, **kw)
+            torch.cuda.synchronize()
+            timing["coll"].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    server_mod._topk = timed_topk
+    for name in ("psum", "all_gather", "broadcast"):
+        setattr(coll, name, timed(getattr(coll, name)))
+
+    def loader(d, step=None, mesh=None, device=None):
+        if mesh.rank == 1 and step == first + 20:
+            raise OSError("injected load fault on rank 1")
+        return EmbeddingIndex.load(d, step=step, mesh=mesh, device=device)
+
+    w = SnapshotWatcher(swap_dir, mesh=mesh, poll_s=0.05, loader=loader)
+    out = {}
+    if mesh.rank == 0:
+        w.start()
+        idx = w.wait_ready(timeout=120)
+        v, hot = idx.vocab_size, idx.placement.hot
+        server = EmbeddingServer(w, batch_size=16, deadline_ms=2.0,
+                                 k=SERVE_K)
+
+        def ask(tag):
+            # requests of 16 rows at batch_size 16: one request a batch,
+            # so the batches are the same in every run
+            ids, tri = _serve_queries(np, seed + len(out), v, hot)
+            reqs = ([("nn", ids[i:i + 16]) for i in range(0, 64, 16)]
+                    + [("analogy", tri[i:i + 16]) for i in range(0, 32, 16)])
+            handles = [(k, q, server.submit(k, q)) for k, q in reqs]
+            out[tag] = [(k, q, r.wait(120)) for k, q, r in handles]
+
+        ask("first")
+        table = np.random.default_rng(seed + 20).standard_normal(
+            (v, idx.dim)).astype(np.float32)
+        pl = VocabPlacement(vocab_size=v, hot=hot, n_shards=2)
+        _publish(swap_dir, first + 10, table, pl)
+        deadline = time.monotonic() + 120
+        while w.current().step != first + 10:
+            if time.monotonic() > deadline:
+                raise TimeoutError("swap to the second publish")
+            time.sleep(0.01)
+        ask("swapped")
+        fails = w.load_failures
+        _publish(swap_dir, first + 20, table[::-1].copy(), pl)
+        while w.load_failures < fails + 2:
+            if time.monotonic() > deadline:
+                raise TimeoutError("the refused publish")
+            time.sleep(0.01)
+        ask("refused")
+        w.stop()
+        server.close()
+        stats = {"swaps": w.swaps, "load_failures": w.load_failures,
+                 "batches": server.batches}
+    else:
+        stats = server_mod.serve_follower(w, mesh)
+    server_mod._topk = real_topk
+    ranks = _all_ranks(mesh, dict(
+        step=w.current().step, swaps=stats["swaps"],
+        load_failures=stats["load_failures"], batches=stats["batches"],
+        topk_ms=float(np.mean(timing["topk"])),
+        coll_ms_per_batch=float(np.sum(timing["coll"])) / stats["batches"]))
+    out = {tag: [(k, q, r.ids, r.scores, r.snapshot_step)
+                 for k, q, r in res] for tag, res in out.items()}
+    return dict(answers=out, ranks=ranks, backend=mesh.backend)
+
+
+def serve_mesh(torch, np, args, split_dir: str, tmp: str) -> dict:
+    """(d) N=2 and N=4 gloo ranks on the one card serve (a)'s split
+    checkpoint; every answer equals the one-rank run's."""
+    from repro_torch.launch.mesh import start_ranks
+    from repro_torch.serve import EmbeddingIndex, make_topk_fn
+    from repro_torch.train import checkpoint as ckpt
+
+    out = {}
+    for n in (2, 4):
+        d = os.path.join(tmp, f"mesh{n}")
+        shutil.copytree(split_dir, d)
+        t0 = time.perf_counter()
+        first = ckpt.latest_step(d)
+        res = start_ranks(serve_mesh_rank, n, "cuda", d, first, args.seed,
+                          timeout=600)
+        seconds = time.perf_counter() - t0
+        steps = {"first": first, "swapped": first + 10,
+                 "refused": first + 10}
+        one = {}
+        for tag, answers in res["answers"].items():
+            step = steps[tag]
+            if step not in one:
+                one[step] = EmbeddingIndex.load(d, step=step,
+                                                device="cuda:0")
+            idx = one[step]
+            for kind, q, ids, sc, got_step in answers:
+                if got_step != step:
+                    raise AssertionError(f"N={n} {tag}: answered from step "
+                                         f"{got_step}, want {step}")
+                fn = make_topk_fn(idx.placement, None, mode=kind, k=SERVE_K)
+                want = tuple(t.cpu().numpy()
+                             for t in fn(idx.hot, idx.cold, q))
+                _same_answers(np, f"N={n} {tag} {kind} vs one rank",
+                              (ids, sc), want)
+        ranks = res["ranks"]
+        if {r["step"] for r in ranks} != {first + 10} or \
+                {r["swaps"] for r in ranks} != {2} or \
+                len({r["load_failures"] for r in ranks}) != 1 or \
+                ranks[0]["load_failures"] < 2:
+            raise AssertionError(f"N={n}: the swaps were not all-or-none: "
+                                 f"{ranks}")
+        out[n] = ranks
+        _line("serve", ranks=n, backend=res["backend"],
+              seconds=f"{seconds:.1f}",
+              answers=sum(len(a) for a in res["answers"].values()),
+              parity="ids==one rank, scores<=1e-6",
+              swap="all ranks flipped; rank-1-only failure: none flipped",
+              steps=[r["step"] for r in ranks],
+              load_failures=[r["load_failures"] for r in ranks],
+              batches=[r["batches"] for r in ranks],
+              topk_ms=[f"{r['topk_ms']:.3f}" for r in ranks],
+              coll_ms_per_batch=[f"{r['coll_ms_per_batch']:.3f}"
+                                 for r in ranks],
+              note="ranks share one card over gloo: no scaling is shown")
+    return out
+
+
+def serve_cli(split_dir: str) -> None:
+    """(e) The serving CLI on the card against (a)'s split checkpoint."""
+    env = dict(os.environ,
+               PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--ckpt-dir",
+         split_dir, "--queries", "256", "--mode", "both", "--check-oracle"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in r.stdout.splitlines()
+             if ln.startswith(("serving:", "oracle_parity=", "serve_stats:"))]
+    if r.returncode != 0 or not any(ln.startswith("oracle_parity=ok")
+                                    for ln in lines):
+        raise AssertionError(f"serve CLI exited {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    _line("serve", cli=json.dumps(" | ".join(lines)),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def phase_serve(torch, np, args, sessions) -> dict:
+    """Phase 12: serve the trained tables, load at a users' vocabulary,
+    chaos, ranks, the CLI."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        dirs = serve_trained(torch, np, args, sessions, tmp)
+        load = serve_load(torch, np, args, tmp)
+        torch.cuda.empty_cache()
+        chaos = serve_chaos(torch, args)
+        split = dirs[sessions[1][0]]
+        mesh = serve_mesh(torch, np, args, split, tmp)
+        serve_cli(split)
+    _line("serve", seconds=f"{time.perf_counter() - t0:.1f}")
+    return dict(load=load, chaos=chaos, mesh=mesh)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2129,6 +2744,13 @@ def main(argv=None) -> int:
     # 11. the workload frontends: node2vec on the kernels, doc2vec and
     # subword on the plain versions; the pWord2Vec-like baseline
     fe = phase_frontends(torch, np, args, quality["f32"]["separation"])
+
+    # 12. serving: phase 4's and phase 9's trained tables behind the port's
+    # serving stack, a 2,000,000-row table under load, chaos, ranks, the CLI
+    phase_serve(torch, np, args, [
+        ("replicated T=1 auto (K2)", sess1),
+        ("split T=8 one shard (K4)", sess_vs),
+        (f"int8 {MIXED_RUNS[-1][0]} T=8 (K4)", sess_mx)])
     mixed_launches = {"cuda": {QUALITY_MIXED: quality["mixed"]["launches"]}}
     for (tables, tile), m in mixed.items():
         mixed_launches.setdefault(m["kernel"], {})[tables] = m["launches"]
@@ -2186,6 +2808,7 @@ def main(argv=None) -> int:
         # launches in phase 11's node2vec runs (rank 0 of the mesh run)
         row["node2vec_launches"] = fe["launches"].get(name, {})
         kernels.append(row)
+    print(smi, flush=True)     # the card and its limit, beside the numbers
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

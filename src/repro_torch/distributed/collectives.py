@@ -11,13 +11,16 @@ each is an exact identity and touches no group.
   (``all_to_all_single``, equal splits).
 * :func:`psum_scatter` — sum ``(n, ...)`` over ranks and keep this rank's
   block (``reduce_scatter_tensor``).
-* :func:`pmean` — the mean over ranks, summed in rank order: an
-  ``all_gather`` into an ``(n, ...)`` buffer, a left-to-right sum, then a
-  true division by ``n``. Its bits depend neither on the tensor's size,
-  nor on ``n``, nor on the backend's reduction algorithm (a ring
-  ``all_reduce`` chunks by size), so every rank gets the same bits and an
-  element's mean is the same whether it sits in a full replicated table or
-  in the hot head of a split one (DESIGN.md §8's bit-identical head).
+* :func:`broadcast` — rank ``src``'s ``x`` on every rank, in place (the
+  serving command stream's).
+* :func:`psum` — the sum over ranks in rank order: an ``all_gather`` into
+  an ``(n, ...)`` buffer, then a left-to-right sum.
+* :func:`pmean` — :func:`psum`, then a true division by ``n``. Its bits
+  (and :func:`psum`'s) depend neither on the tensor's size, nor on ``n``,
+  nor on the backend's reduction algorithm (a ring ``all_reduce`` chunks
+  by size), so every rank gets the same bits and an element's mean is the
+  same whether it sits in a full replicated table or in the hot head of a
+  split one (DESIGN.md §8's bit-identical head).
 
 int8 and bf16 payloads travel as they are, on the tensors' device. gloo,
 the backend of ranks that share one card, runs all four on CUDA tensors
@@ -86,16 +89,36 @@ def psum_scatter(x: torch.Tensor, mesh) -> torch.Tensor:
     return _run(mesh, x, (1, *x.shape[1:]), _REDUCE_SCATTER)
 
 
-def pmean(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Mean of ``x`` over ranks, summed in rank order (see the module
-    docstring); a new tensor, the same bits on every rank."""
+def psum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Sum of ``x`` over ranks, in rank order (see the module docstring);
+    a new tensor, the same bits on every rank."""
     if _one(mesh):
         return x
     parts = all_gather(x, mesh)
     acc = parts[0].clone()
     for part in parts[1:]:
         acc += part
+    return acc
+
+
+def pmean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Mean of ``x`` over ranks, summed in rank order (see the module
+    docstring); a new tensor, the same bits on every rank."""
+    if _one(mesh):
+        return x
+    acc = psum(x, mesh)
     # a tensor divisor: CUDA divides by a Python scalar as a multiply by
     # its reciprocal, which rounds unlike a true division at n=3
     return acc / torch.full((), float(mesh.size), dtype=acc.dtype,
                             device=acc.device)
+
+
+def broadcast(x: torch.Tensor, mesh, src: int = 0) -> torch.Tensor:
+    """Rank ``src``'s ``x`` on every rank, written into ``x`` in place
+    (``x`` must be contiguous and of the same shape on every rank)."""
+    if _one(mesh):
+        return x
+    if mesh.group is not None:
+        src = dist.get_global_rank(mesh.group, src)
+    dist.broadcast(x, src=src, group=mesh.group)
+    return x

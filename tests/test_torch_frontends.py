@@ -22,7 +22,9 @@ seeded inputs:
   finite with every n-gram row in the int8 tail; a doc2vec checkpoint
   resumed mid-epoch bit for bit;
 * the CLI for every registered workload, its ``final_digest`` the same
-  with 2 prefetch workers.
+  with 2 prefetch workers;
+* doc vectors queryable through the port's serving index, as the
+  reference's ``test_doc_vectors_queryable_via_embedding_index``.
 
 Multi-rank runs are in ``test_torch_frontends_mesh.py``."""
 import dataclasses
@@ -30,6 +32,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -652,3 +655,46 @@ def test_sharded_checkpoint_with_extra_rows_restores_replicated(tmp_path):
     assert b.resumed_step == 2 and b.placement is None
     np.testing.assert_array_equal(b.embeddings(), a.embeddings())
     assert b.embeddings().shape == (pipe.table_rows, 16)
+
+
+# ---------------------------------------------------------------------------
+# Serve queryability: doc vectors through EmbeddingIndex
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shard", [False, True])
+def test_doc_vectors_queryable_via_embedding_index(shard):
+    """A port doc2vec session serves through the port's serving stack: the
+    index covers the doc rows past the vocabulary (in the cold tail when
+    sharded), its table is the normalized trainer table, and top-k over
+    *doc* query ids equals the reference's sharded top-k and dense oracle
+    on the same table (ids equal, scores within 1e-6)."""
+    from jax.sharding import Mesh
+
+    import repro.serve.index as ref_index
+    import repro.serve.query as ref_query
+    from repro_torch.serve import EmbeddingIndex, make_topk_fn
+    extra = dict(vocab_shard=True, hot_vocab_frac=0.3) if shard else {}
+    pipe, cfg, _ = _build("doc2vec", tile=4, **extra)
+    sess = TrainSession(pipe, cfg, device="cpu")
+    sess.train(max_batches=3)
+    idx = EmbeddingIndex.from_session(sess)
+    V = pipe.vocab.size
+    assert idx.vocab_size == pipe.table_rows == V + KNOBS["doc2vec"]["docs"]
+    emb = sess.embeddings()
+    norm = emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True),
+                            1e-12)
+    np.testing.assert_allclose(idx.dense_embeddings(), norm, atol=1e-6)
+    doc_ids = np.arange(V, pipe.table_rows, dtype=np.int32)
+    got = make_topk_fn(idx.placement, idx.mesh, mode="nn", k=5)(
+        idx.hot, idx.cold, doc_ids)
+    placement = ref_vp.VocabPlacement(**idx.placement.to_extra())
+    ridx = ref_index.EmbeddingIndex._stage(
+        placement, *placement.split(emb),
+        Mesh(np.array(jax.devices()[:1]), ("data",)))
+    want = ref_query.dense_topk(ridx.dense_embeddings(), doc_ids, k=5)
+    ref_got = ref_query.make_topk_fn(placement, ridx.mesh, mode="nn", k=5)(
+        ridx.hot, ridx.cold, doc_ids)
+    for w in (want, ref_got):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(w[0]))
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(w[1]),
+                                   atol=1e-6, rtol=0)

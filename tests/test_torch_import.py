@@ -4,7 +4,8 @@
 ``ml_dtypes`` and the reference package ``repro`` unloaded, and no source of the port names them in an import. A process
 prefetch worker's import path (and the CLI module, which such a worker
 imports as its main module, and the mesh launcher it imports for more
-than one rank) leaves ``torch`` unloaded too."""
+than one rank) leaves ``torch`` unloaded too, and so does the serving CLI
+module, which its ranks import as their main module."""
 import ast
 import os
 import pathlib
@@ -39,6 +40,8 @@ def test_import_leaves_jax_and_reference_unloaded():
             "repro_torch.kernels.")))
         print("SLICE", sorted(m for m in mods if m.startswith(
             ("repro_torch.frontends", "repro_torch.core."))))
+        print("SERVE", sorted(m for m in mods if m.startswith(
+            ("repro_torch.serve", "repro_torch.launch.serve"))))
         print("BAD", bad)
     """.format(repo=REPO)
     out = run_subprocess(code, timeout=300)
@@ -58,13 +61,17 @@ def test_import_leaves_jax_and_reference_unloaded():
                 "frontends.doc2vec", "frontends.subword", "core.window",
                 "core.baselines"):
         assert f"'repro_torch.{mod}'" in out.stdout, out.stdout
+    assert ("SERVE ['repro_torch.launch.serve', 'repro_torch.serve', "
+            "'repro_torch.serve.chaos', 'repro_torch.serve.index', "
+            "'repro_torch.serve.query', 'repro_torch.serve.server', "
+            "'repro_torch.serve.snapshot']") in out.stdout, out.stdout
 
 
 def test_worker_import_path_is_torch_free():
     """What a process prefetch worker imports — the finalize path with a
-    vocab-sharding placement — and the CLI module (a worker's
-    ``__mp_main__`` under ``python -m``) load neither torch nor jax nor
-    the reference."""
+    vocab-sharding placement — and the CLI modules (a worker's or a
+    rank's ``__mp_main__`` under ``python -m``) load neither torch nor jax
+    nor the reference."""
     code = """
         import sys
         from repro_torch.configs.w2v import smoke
@@ -72,6 +79,7 @@ def test_worker_import_path_is_torch_free():
         from repro_torch.data import prefetch
         from repro_torch.distributed.vocab_placement import VocabPlacement
         import repro_torch.launch.mesh
+        import repro_torch.launch.serve
         import repro_torch.launch.train
         cfg = smoke(sentences_per_batch=16, max_sentence_len=16,
                     tile_windows=4, vocab_shard=True)
