@@ -5,7 +5,7 @@ main path and times the kernels.
 
     python3 chip_smoke.py [--seed 0] [--sentences-per-batch 10000]
 
-About 11 min on an H100, most of it in the plain versions of phases 5
+About 12 min on an H100, most of it in the plain versions of phases 5
 and 11.
 
 Phases (each prints one line; any failure raises and the script exits
@@ -159,6 +159,26 @@ non-zero):
               publish swaps on every rank, one that rank 1 alone fails to
               load on none. (e) ``python -m repro_torch.launch.serve
               --check-oracle`` on (a)'s split checkpoint.
+
+13. mesh chaos — supervised recovery under a mesh: 2 gloo ranks on the
+              card, d=128, S=2,000 (phase 10's N=4 size), ~5 batches an
+              epoch, 2 process workers a rank; ``run_chaos`` on the mesh
+              with the ``ci`` schedule, its failed steps, worker kill and
+              NaN on rank 1 and the truncation from rank 0: data-parallel
+              T=1 (auto, K2) and vocab-sharded exact T=8 (auto, K4, the
+              NaN in rank 1's cold block). Gates: the faulted run's
+              gathered digest equals the fault-free 2-rank run's, every
+              fault fired, the reports are equal on both ranks, the
+              truncated checkpoint was quarantined, and each rank launched
+              its kernel once per batch of both runs (replays included).
+              Prints each rank's vote ms (one vote a batch and one a
+              restore; host clock, waiting for the other rank included:
+              the mean, a batch vote's median and maximum, a restore
+              vote's mean), probe ms per batch, recovery s, wall s and
+              launches. Then the
+              train CLI on 2 ranks with ``--vocab-shard 2 --max-restarts 3
+              --health-every 1 --ckpt-dir ... --ckpt-every 2`` must print
+              the plain run's ``final_digest``.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the repository's ``src/`` beside it, the script fails before
@@ -2627,6 +2647,163 @@ def phase_serve(torch, np, args, sessions) -> dict:
     return dict(load=load, chaos=chaos, mesh=mesh)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: supervised recovery and chaos under a mesh (2 gloo ranks)
+# ---------------------------------------------------------------------------
+
+MESH_CHAOS_S = 2000            # phase 10's N=4 size (depth cut, not width)
+# (name, T, kernel, sharding): data-parallel T=1 (auto: K2) and
+# vocab-sharded exact T=8 (auto: K4)
+MESH_CHAOS_RUNS = (("dp T=1", 1, "cuda_pipelined", {}),
+                   ("sharded exact T=8", 8, "cuda_tiled_fused",
+                    dict(vocab_shard=True, tables="shards=2,exchange=exact")))
+
+
+@contextlib.contextmanager
+def vote_spy():
+    """Times each vote of the supervisors on this rank (host clock around
+    ``TrainSupervisor._gather``), by kind: a batch's vote (a row of 5) or
+    a restore's (a row of 2)."""
+    from repro_torch.train.supervisor import TrainSupervisor
+
+    real = TrainSupervisor._gather
+    times = {"batch": [], "restore": []}
+
+    def timed(self, row, own=None):
+        t0 = time.perf_counter()
+        try:
+            return real(self, row, own)
+        finally:
+            times["batch" if len(row) == 5 else "restore"].append(
+                time.perf_counter() - t0)
+
+    TrainSupervisor._gather = timed
+    try:
+        yield times
+    finally:
+        TrainSupervisor._gather = real
+
+
+def mesh_chaos_rank(mesh, args, frac: float, tmp: str) -> dict:
+    """Phase 13 on one rank: ``run_chaos`` on the mesh with the ``ci``
+    schedule (its rank-local faults on rank 1), once per run of
+    ``MESH_CHAOS_RUNS``, launch counts zeroed before each and read after;
+    every gate raises. Returns each run's launches by rank."""
+    import numpy as np
+
+    from repro_torch.kernels import _build, fullw2v
+    from repro_torch.train.chaos import SCHEDULES, run_chaos
+
+    _build.load()
+    sched = SCHEDULES["ci"]
+    # ~5 batches an epoch, so the 10-batch schedule crosses the boundary
+    corpus = make_corpus(args, args.S * 9 // 2)
+    launches = {}
+    for name, tile, kernel, shard in MESH_CHAOS_RUNS:
+        cfg = make_config(args, tile, **(dict(shard, hot_vocab_frac=frac)
+                                         if shard else {}))
+        fullw2v.reset_launch_counts()
+        with vote_spy() as votes:
+            r = run_chaos(sched, backend="auto", cfg=cfg, corpus=corpus,
+                          mesh=mesh,
+                          ckpt_dir=os.path.join(tmp, name.replace(" ", "_")))
+        # the baseline's batches, then every batch the faulted run trained
+        mine = _launched(kernel, sched.max_batches + r["batches"])
+        every = _all_ranks(mesh, mine)
+        spied = _all_ranks(mesh, {
+            "batch_vote_ms_median": 1e3 * float(np.median(votes["batch"])),
+            "batch_vote_ms_max": 1e3 * max(votes["batch"]),
+            "restore_vote_ms_mean": 1e3 * float(np.mean(votes["restore"]))})
+        bad = []
+        if r["digest_match"] != 1:
+            bad.append("the faulted run's gathered tables differ from the "
+                       "fault-free 2-rank run's")
+        if r["faults_fired"] != r["faults_scheduled"]:
+            bad.append(f"{r['faults_fired']}/{r['faults_scheduled']} faults")
+        if r["reports_equal"] != 1:
+            bad.append("the ranks' reports differ")
+        if r["ckpt_quarantined"] < 1 or r["workers_killed"] < 1:
+            bad.append(f"quarantined={r['ckpt_quarantined']} "
+                       f"workers_killed={r['workers_killed']}")
+        if bad:
+            raise AssertionError(f"mesh chaos {name}: {'; '.join(bad)} "
+                                 f"({r})")
+        if mesh.rank == 0:
+            for rank, (p, n, v) in enumerate(zip(r["per_rank"], every,
+                                                 spied)):
+                _line("mesh_chaos", run=name, rank=rank, kernel=kernel,
+                      launches=n, votes=p["votes"],
+                      vote_ms=f"{1e3 * p['vote_seconds'] / p['votes']:.3f}",
+                      **{k: f"{x:.3f}" for k, x in v.items()},
+                      probes=p["probes"],
+                      probe_ms=f"{1e3 * p['probe_seconds'] / p['probes']:.3f}",
+                      recovery_s=f"{p['recovery_seconds']:.3f}",
+                      wall_s=f"{p['wall_seconds']:.3f}")
+            _line("mesh_chaos", run=name, schedule="ci", fault_rank=1,
+                  ranks=mesh.size, backend=f"{mesh.backend}@{mesh.device}",
+                  S=cfg.sentences_per_batch, d=cfg.dim, T=tile,
+                  workers="2xprocess", **{k: r[k] for k in (
+                      "digest_match", "reports_equal", "faults_fired",
+                      "faults_scheduled", "restarts", "rollbacks",
+                      "health_failures", "ckpt_quarantined", "heals",
+                      "workers_killed", "batches")},
+                  bitwise="==fault-free 2-rank run")
+        launches.setdefault(kernel, {})[f"N=2 ci {name}"] = every
+    return launches
+
+
+def mesh_chaos_cli(tmp: str) -> None:
+    """The train CLI on 2 ranks (``--vocab-shard 2``): with the resilience
+    flags and checkpoints it prints the plain run's ``final_digest``."""
+    env = dict(os.environ,
+               PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    flags = ["--vocab", "8192", "--clusters", "64", "--sentences", "4000",
+             "--sentences-per-batch", "1000", "--epochs", "1",
+             "--max-batches", "4", "--vocab-shard", "2"]
+    supervised = ["--max-restarts", "3", "--health-every", "1",
+                  "--ckpt-dir", os.path.join(tmp, "cli"), "--ckpt-every", "2"]
+    out = []
+    t0 = time.perf_counter()
+    for extra in ([], supervised):
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "w2v",
+             *flags, *extra], env=env, cwd=ROOT, capture_output=True,
+            text=True, timeout=300)
+        if r.returncode != 0:
+            raise AssertionError(f"train CLI exited {r.returncode}:\n"
+                                 f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+        out.append({ln.split(":")[0].split("=")[0]: ln
+                    for ln in r.stdout.splitlines()
+                    if ln.startswith(("final_digest=", "resilience:",
+                                      "backend="))})
+    plain, sup = out
+    if (plain["final_digest"] != sup["final_digest"]
+            or "resilience" not in sup or "resilience" in plain):
+        raise AssertionError(f"resilience flags changed the run: {out}")
+    _line("mesh_chaos", cli=json.dumps(" ".join(flags + supervised)),
+          backend=json.dumps(sup["backend"]),
+          resilience=json.dumps(sup["resilience"]),
+          final_digest=sup["final_digest"].split("=")[1][:16],
+          same="==plain CLI run", seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def phase_mesh_chaos(args, frac: float) -> dict:
+    """Phase 13: 2 gloo ranks on the one card, each run of
+    ``MESH_CHAOS_RUNS`` under the ``ci`` schedule, then the CLI check;
+    returns the launches by kernel and run."""
+    from repro_torch.launch.mesh import start_ranks
+
+    t0 = time.perf_counter()
+    small = argparse.Namespace(**{**vars(args), "S": MESH_CHAOS_S})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_chaos_") as tmp:
+        launches = start_ranks(mesh_chaos_rank, 2, "cuda", small, frac, tmp,
+                               timeout=600)
+        mesh_chaos_cli(tmp)
+    _line("mesh_chaos", seconds=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2751,6 +2928,11 @@ def main(argv=None) -> int:
         ("replicated T=1 auto (K2)", sess1),
         ("split T=8 one shard (K4)", sess_vs),
         (f"int8 {MIXED_RUNS[-1][0]} T=8 (K4)", sess_mx)])
+
+    # 13. supervised recovery under a mesh: the ci schedule on 2 gloo
+    # ranks, its rank-local faults on rank 1, and the CLI's resilience
+    # flags on 2 ranks
+    chaos_launches = phase_mesh_chaos(args, frac)
     mixed_launches = {"cuda": {QUALITY_MIXED: quality["mixed"]["launches"]}}
     for (tables, tile), m in mixed.items():
         mixed_launches.setdefault(m["kernel"], {})[tables] = m["launches"]
@@ -2807,6 +2989,9 @@ def main(argv=None) -> int:
         row["multi_rank_launches"] = mesh_launches.get(name, {})
         # launches in phase 11's node2vec runs (rank 0 of the mesh run)
         row["node2vec_launches"] = fe["launches"].get(name, {})
+        # launches on each rank of phase 13's chaos runs (baseline and
+        # faulted run, replays included), by run
+        row["mesh_chaos_launches"] = chaos_launches.get(name, {})
         kernels.append(row)
     print(smi, flush=True)     # the card and its limit, beside the numbers
     print(json.dumps({"kernels": kernels}), flush=True)

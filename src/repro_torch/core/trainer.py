@@ -38,7 +38,6 @@ replaces the tables with new tensors, never aliases them.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import itertools
 import logging
@@ -569,15 +568,11 @@ class TrainSession:
         replay on step failure, health-probe rollback, watchdog timeouts,
         restart budget with refill (``repro_torch.train.supervisor``,
         DESIGN.md §9). Keyword arguments go to :class:`TrainSupervisor`;
-        its :class:`SupervisorReport` lands on ``self.last_report``.
-        Runs on one rank only: a rollback under a mesh needs every rank to
-        agree on it (ROADMAP item 10)."""
+        its :class:`SupervisorReport` lands on ``self.last_report``. Under
+        a mesh every rank calls it with the same arguments: the ranks
+        vote on every batch's outcome and take each rollback together,
+        and every rank's report (its times its own) lands there."""
         from repro_torch.train.supervisor import TrainSupervisor
-        if self.mesh is not None and self.mesh.size > 1:
-            raise NotImplementedError(
-                f"supervised recovery under a mesh of {self.mesh.size} "
-                f"ranks needs the ranks to agree on every rollback "
-                f"(ROADMAP item 10); train() runs under a mesh")
         sup = TrainSupervisor(self, **kwargs)
         words0 = self.state.words_seen
         self.fetch_seconds = 0.0
@@ -763,64 +758,79 @@ class TrainSession:
         Returns the restored step, or None when starting over. Sets the
         pipeline fast-forward so the next :meth:`stream` resumes mid-epoch
         exactly where the checkpoint left off. Under a mesh every rank
-        calls it; rank 0 reads (and quarantines) first, the others then
-        find the same newest readable step."""
-        with self._rank0_first():
-            return self._restore_latest()
+        calls it: rank 0 alone resolves the step (reading it whole and
+        quarantining what it cannot read), broadcasts it, or "start over",
+        on the mesh's control group, and every other rank restores exactly
+        that step."""
+        step = self._restore_newest() if self._leads() else None
+        if self.mesh is not None and self.mesh.size > 1:
+            step = self._from_rank0(step)
+            if not self._leads():
+                self._restore_step(step)
+        return step
 
-    @contextlib.contextmanager
-    def _rank0_first(self):
-        """Run the body on rank 0, then on the other ranks (one barrier on
-        every rank): only rank 0 quarantines a corrupt checkpoint."""
+    def _leads(self) -> bool:
+        """Whether this process resolves checkpoints: rank 0, or no mesh."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _from_rank0(self, step: Optional[int]) -> Optional[int]:
+        """Rank 0's ``step`` (``None`` travels as -1) on every rank: one
+        broadcast on the mesh's control group; the value itself at one
+        rank."""
         if self.mesh is None or self.mesh.size == 1:
-            yield
-            return
-        if self.mesh.rank != 0:
-            self.mesh.barrier()
-        try:
-            yield
-        finally:
-            if self.mesh.rank == 0:
-                self.mesh.barrier()
+            return step
+        from repro_torch.distributed import collectives as coll
+        ctl = self.mesh.control
+        t = torch.tensor([-1 if step is None else step], dtype=torch.int64,
+                         device=ctl.device)
+        got = int(coll.broadcast(t, ctl).item())
+        return None if got < 0 else got
 
-    def _restore_latest(self) -> Optional[int]:
+    def _restore_newest(self) -> Optional[int]:
+        """Restore the newest readable checkpoint (or re-initialize);
+        returns its step."""
         from repro_torch.train import checkpoint as ckpt
         while True:
             step = (ckpt.latest_step(self.ckpt_dir) if self.ckpt_dir
                     else None)
-            if step is None:
-                log.warning("no usable checkpoint — re-initializing from "
-                            "seed %d", self.cfg.seed)
-                self.state = init_state(
-                    getattr(self.pipeline, "table_rows",
-                            self.pipeline.vocab.size),
-                    self.cfg, self.cfg.seed, self.device,
-                    placement=self.placement, spec=self.spec,
-                    mesh=self.mesh)
-                self._resume_skip = 0
-                self.resumed_step = None
-                return None
             try:
-                extra = self._restore_tables(step)
+                self._restore_step(step)
             except ckpt.CorruptCheckpoint:
                 # quarantined inside restore(); the next latest_step no
                 # longer sees it — fall back to the one before
                 continue
-            self.state.words_seen = int(extra.get("words_seen", 0))
-            self.state.batches_seen = int(extra.get("batches_seen", step))
-            cursor = ckpt.PipelineCursor.from_extra(extra)
-            self.state.epoch = cursor.epoch
-            self.state.epoch_batch = cursor.epoch_batch
-            self._resume_skip = cursor.epoch_batch
-            self.resumed_step = step
             return step
+
+    def _restore_step(self, step: Optional[int]) -> None:
+        """Restore checkpoint ``step``, or re-initialize from the seed when
+        ``None``, with the counters and the pipeline fast-forward."""
+        from repro_torch.train import checkpoint as ckpt
+        if step is None:
+            log.warning("no usable checkpoint — re-initializing from "
+                        "seed %d", self.cfg.seed)
+            self.state = init_state(
+                getattr(self.pipeline, "table_rows",
+                        self.pipeline.vocab.size),
+                self.cfg, self.cfg.seed, self.device,
+                placement=self.placement, spec=self.spec, mesh=self.mesh)
+            self._resume_skip = 0
+            self.resumed_step = None
+            return
+        extra = self._restore_tables(step)
+        self.state.words_seen = int(extra.get("words_seen", 0))
+        self.state.batches_seen = int(extra.get("batches_seen", step))
+        cursor = ckpt.PipelineCursor.from_extra(extra)
+        self.state.epoch = cursor.epoch
+        self.state.epoch_batch = cursor.epoch_batch
+        self._resume_skip = cursor.epoch_batch
+        self.resumed_step = step
 
     def _maybe_resume(self) -> None:
         from repro_torch.train import checkpoint as ckpt
-        with self._rank0_first():
-            if ckpt.latest_step(self.ckpt_dir) is not None:
-                self._restore_latest()
-            # else a fresh start: keep the init-state tables as built
+        newest = ckpt.latest_step(self.ckpt_dir) if self._leads() else None
+        if self._from_rank0(newest) is not None:
+            self.restore_latest()
+        # else a fresh start: keep the init-state tables as built
 
     # -- inference helpers ----------------------------------------------------
     def embeddings(self) -> np.ndarray:

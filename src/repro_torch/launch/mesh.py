@@ -6,7 +6,11 @@ process per rank in a ``torch.distributed`` group, and a
 :class:`DataMesh` is one rank's view of it. :func:`make_host_mesh` builds
 it from the initialized default group (a process without a group is a
 one-rank mesh), and :func:`start_ranks` starts N ranks and runs a function
-on each.
+on each. Besides the group its steps run on, a mesh of several ranks has
+a control group of its own (:attr:`DataMesh.control`) for the decisions
+its ranks take together (the supervisor's vote on every batch, the
+checkpoint step to restore), so such a decision never pairs with a step's
+collective.
 
 The backend follows one rule (:func:`plan_ranks`): ``nccl`` when the
 ranks run on CUDA and each can have a card of its own (N ≤
@@ -29,7 +33,7 @@ import queue
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 AXIS = "data"
 
@@ -41,13 +45,15 @@ class DataMesh:
     ``group`` is the ``torch.distributed`` process group the collectives
     run on (``None``: the default group, or no group at one rank);
     ``device`` is this rank's device; ``backend`` is ``"gloo"``,
-    ``"nccl"`` or ``"none"`` (one rank, no group)."""
+    ``"nccl"`` or ``"none"`` (one rank, no group); ``control_group`` is
+    the group of :attr:`control` (``None``: the default group)."""
     rank: int
     size: int
     device: Any                 # torch.device
     backend: str = "none"
     group: Any = None
     axis: str = AXIS
+    control_group: Any = None
 
     def __post_init__(self):
         if not 0 <= self.rank < self.size:
@@ -60,12 +66,32 @@ class DataMesh:
             import torch.distributed as dist
             dist.barrier(group=self.group)
 
+    @property
+    def control(self) -> "DataMesh":
+        """The mesh on its control group, for the small decisions every
+        rank takes together (``collectives`` on it like on the mesh). Its
+        ``device`` is the one for those decisions' tensors: the rank's
+        card under NCCL, which takes CUDA tensors only, else the CPU."""
+        import torch
+        return dataclasses.replace(
+            self, group=self.control_group, control_group=None,
+            device=(self.device if self.backend == "nccl"
+                    else torch.device("cpu")))
 
-def make_host_mesh(device=None) -> DataMesh:
+
+def make_host_mesh(device=None, timeout_s: Optional[float] = None
+                   ) -> DataMesh:
     """The mesh of the initialized default process group, or a one-rank
     mesh when no group is initialized. ``device`` resolves as a session's
     does (``repro_torch.core.trainer.resolve_device``: the GPU unless the
-    caller asks for the CPU); under NCCL it defaults to ``cuda:<rank>``."""
+    caller asks for the CPU); under NCCL it defaults to ``cuda:<rank>``.
+
+    With several ranks every rank must call it: it creates the control
+    group (a collective), on the same backend, whose operations time out
+    after half of ``timeout_s``, the default group's timeout (torch's
+    default when ``None``). A rank that waits in a decision for a peer
+    stuck in a step's collective thus gives up, and reports, before that
+    collective's own timeout ends the peer."""
     import torch
     import torch.distributed as dist
 
@@ -76,8 +102,13 @@ def make_host_mesh(device=None) -> DataMesh:
     backend = str(dist.get_backend())
     if device is None and backend == "nccl":
         device = torch.device("cuda", rank % torch.cuda.device_count())
+    control = None
+    if size > 1:
+        timeout = (dist.default_pg_timeout if timeout_s is None
+                   else datetime.timedelta(seconds=timeout_s))
+        control = dist.new_group(backend=backend, timeout=timeout / 2)
     return DataMesh(rank=rank, size=size, device=resolve_device(device),
-                    backend=backend)
+                    backend=backend, control_group=control)
 
 
 def plan_ranks(device, n: int) -> Tuple[str, List[Any]]:
@@ -116,7 +147,7 @@ def _rank_main(fn, rank: int, n: int, backend: str, device: str,
         dist.init_process_group(
             backend, init_method=f"file://{store}", rank=rank,
             world_size=n, timeout=datetime.timedelta(seconds=timeout_s))
-        out = fn(make_host_mesh(dev), *args, **kwargs)
+        out = fn(make_host_mesh(dev, timeout_s), *args, **kwargs)
         dist.destroy_process_group()
         results.put((rank, None, out if rank == 0 else None))
     except BaseException:   # reported to the launcher, then exit non-zero

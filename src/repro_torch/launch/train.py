@@ -17,7 +17,8 @@ N host devices; rank 0 prints. ``--prefetch-workers/--prefetch-depth
 (``repro_torch.data.prefetch``), ``--ckpt-dir/--ckpt-every`` checkpoint
 and resume, and ``--max-restarts/--step-timeout/--health-every
 /--reset-after`` train under the recovery supervisor
-(``TrainSession.train_resilient``, one rank only). ``--workload`` takes
+(``TrainSession.train_resilient``; with N ranks they vote on every
+batch and roll back together). ``--workload`` takes
 every frontend of ``repro_torch.frontends`` (``w2v``, ``doc2vec``,
 ``node2vec``, ``subword``), built from the reference's flags; doc2vec and
 subword steps run the plain versions, which alone consume their doc rows
@@ -111,6 +112,10 @@ def train_rank(mesh, args) -> int:
                            ckpt_dir=args.ckpt_dir,
                            ckpt_every=args.ckpt_every)
     say(f"backend={trainer.backend} device={trainer.device}")
+    if trainer.spec.is_mixed:
+        s = trainer.spec
+        say(f"tables: hot={s.hot_dtype} cold={s.cold_dtype} "
+            f"master_copy={s.master_copy}")
     if trainer.placement is not None:
         p = trainer.placement
         ranks = ("" if mesh is None else

@@ -26,6 +26,27 @@ untouched; counted and logged, never silent). Skip identification assumes
 ``health_every=1``, so the supervisor refuses any other value with it. A
 restored checkpoint is probed too: one that itself fails health is
 quarantined and the fallback continues further back.
+
+Under a mesh of several ranks (one process each, SPMD) every rank takes
+the same recovery decisions. After every supervised batch each rank
+catches its own outcome (success, a step exception, a
+:class:`StepTimeout`, a :class:`HealthError` from probing its own tables)
+and the ranks vote: one ``all_gather`` of a small int64 row per rank,
+``[batches_seen, epoch, epoch_batch, finished, status]``, on the mesh's
+control group (``DataMesh.control``), so a vote never pairs with a step's
+collective. Positions that differ raise :class:`MeshDesync` on every rank,
+which ends the run. If any rank failed, every rank raises the kind of the
+lowest failing rank: that rank its own exception, the others a
+:class:`PeerError` of the same kind naming it. ``run_with_recovery``, the
+restart budget and the report then take the same path on every rank; a
+rollback restores the step rank 0 chose (``TrainSession.restore_latest``),
+and the restored tables' health is voted too, so a checkpoint unhealthy
+on any rank is quarantined once, by rank 0, and every rank falls back.
+Every scheduled fault fires after its batch's collectives, so one vote a
+batch suffices for them. A fault before a step's collective leaves the
+peers inside it: the faulted rank's vote times out (the control group's
+timeout is half the mesh's) and raises :class:`MeshDesync`, and the
+launcher ends the job naming that rank.
 """
 from __future__ import annotations
 
@@ -50,6 +71,46 @@ class HealthError(RuntimeError):
     above the divergence bound."""
 
 
+class MeshDesync(RuntimeError):
+    """The ranks of a supervised mesh disagree on where they stand, or a
+    vote failed because a peer never reached it (a fault before or inside
+    a step's collective). Recovery cannot go on: the run ends."""
+
+
+class PeerError(RuntimeError):
+    """Raised on a rank under a mesh when peer ``rank`` failed the batch
+    (``what``: its exception): a step failure. Its subclasses keep the
+    other kinds, so recovery takes the failing rank's path."""
+
+    def __init__(self, rank: int, what: str):
+        super().__init__(f"rank {rank} failed: {what}")
+        self.rank = rank
+
+
+class PeerStepTimeout(PeerError, StepTimeout):
+    """A peer's step exceeded the watchdog's bound."""
+
+
+class PeerHealthError(PeerError, HealthError):
+    """A peer's tables failed the health probe."""
+
+
+# a vote's status codes: 0 is success
+_STEP, _TIMEOUT, _HEALTH = 1, 2, 3
+_PEER = {_STEP: PeerError, _TIMEOUT: PeerStepTimeout,
+         _HEALTH: PeerHealthError}
+
+
+def _status(exc: Optional[BaseException]) -> int:
+    if exc is None:
+        return 0
+    if isinstance(exc, HealthError):
+        return _HEALTH
+    if isinstance(exc, StepTimeout):
+        return _TIMEOUT
+    return _STEP
+
+
 @dataclasses.dataclass
 class SupervisorReport:
     """What one supervised run survived.
@@ -60,7 +121,11 @@ class SupervisorReport:
     and the fallback walks further back. ``recovery_seconds`` is total
     wall time inside recovery (close stream, restore, reopen).
     ``probes`` / ``probe_seconds`` count the health probes and the host
-    time they took, the device sync included.
+    time they took, the device sync included. Under a mesh every count
+    but ``probes`` is equal on every rank (a rank whose step raised did
+    not probe that batch); ``votes`` / ``vote_seconds`` count the rank's
+    votes and the host time inside them, waiting for the slowest rank
+    included.
     """
     restarts: int = 0
     rollbacks: int = 0
@@ -69,9 +134,11 @@ class SupervisorReport:
     batches_skipped: int = 0
     ckpt_quarantined: int = 0    # restored-but-unhealthy checkpoints
     recovery_seconds: float = 0.0
-    batches: int = 0             # metrics consumed, replays included
+    batches: int = 0             # batches trained, replays included
     probes: int = 0
     probe_seconds: float = 0.0
+    votes: int = 0
+    vote_seconds: float = 0.0
 
 
 def table_max_abs(params) -> dict:
@@ -102,6 +169,9 @@ class TrainSupervisor:
     epochs / max_batches : forwarded to ``stream``; ``max_batches`` is a
         *global* position (``state.batches_seen``), so replayed batches
         are not double-counted against it.
+
+    Under the session's mesh every rank constructs and runs one, with the
+    same arguments.
     """
 
     def __init__(self, session, *,
@@ -132,6 +202,8 @@ class TrainSupervisor:
         self._it: Optional[Iterator] = None
         self._finished = False
         self._since_probe = 0
+        mesh = getattr(session, "mesh", None)
+        self._mesh = mesh if mesh is not None and mesh.size > 1 else None
 
     # -- health probe --------------------------------------------------------
     def _probe(self) -> None:
@@ -174,20 +246,87 @@ class TrainSupervisor:
             self._it.close()
             self._it = None
 
+    # -- the ranks' vote -----------------------------------------------------
+    def _gather(self, row, own: Optional[BaseException] = None) -> list:
+        """Every rank's int ``row``, by rank: one ``all_gather`` on the
+        mesh's control group. A failed gather (a peer that never votes
+        before the group's timeout) raises :class:`MeshDesync`; ``own``
+        is this rank's failure, named in it."""
+        from repro_torch.distributed import collectives as coll
+        ctl = self._mesh.control
+        t0 = time.perf_counter()
+        try:
+            rows = coll.all_gather(torch.tensor(row, dtype=torch.int64,
+                                                device=ctl.device),
+                                   ctl).tolist()
+        except RuntimeError as e:
+            mine = "" if own is None else f" after its own {own!r}"
+            raise MeshDesync(
+                f"rank {ctl.rank}: the vote failed{mine}; a peer did not "
+                f"reach it (a fault before or inside a step's collective)"
+            ) from e
+        self.report.votes += 1
+        self.report.vote_seconds += time.perf_counter() - t0
+        return rows
+
+    @staticmethod
+    def _agree(rows, cols: int, what: str) -> None:
+        """Raise :class:`MeshDesync` unless the rows' first ``cols``
+        values are equal on every rank."""
+        if any(r[:cols] != rows[0][:cols] for r in rows):
+            raise MeshDesync(f"the ranks disagree on the {what}: " + ", ".join(
+                f"rank {i} {r[:cols]}" for i, r in enumerate(rows)))
+
+    def _vote(self, exc: Optional[Exception]) -> None:
+        """The ranks' vote on this batch (see the module docstring): every
+        rank returns, or every rank raises the same kind."""
+        s = self.session.state
+        rows = self._gather([s.batches_seen, s.epoch, s.epoch_batch,
+                             int(self._finished), _status(exc)], exc)
+        self._agree(rows, 4, "position [batches_seen, epoch, epoch_batch, "
+                             "finished]")
+        failed = [r for r, row in enumerate(rows) if row[4]]
+        if not failed:
+            return
+        import torch.distributed as dist
+        whats = [None] * self._mesh.size     # the failures, for the message
+        dist.all_gather_object(whats, None if exc is None else repr(exc),
+                               group=self._mesh.control_group)
+        first, kind = failed[0], rows[failed[0]][4]
+        if exc is not None and _status(exc) == kind:
+            raise exc
+        raise _PEER[kind](first, whats[first]) from exc
+
     # -- the supervised loop -------------------------------------------------
     def _step(self, step: int) -> None:
+        if self._mesh is None:
+            self._advance()
+            return
+        exc = None
+        try:
+            self._advance()
+        except Exception as e:   # noqa: BLE001 — voted; the vote raises it
+            exc = e
+        self._vote(exc)
+
+    def _advance(self) -> None:
+        """Train the next batch (and probe the tables when due)."""
         if self._it is None:
             self._open()
             if self._finished:
                 return
         guard = (Watchdog(self.step_timeout_s) if self.step_timeout_s
                  else contextlib.nullcontext())
-        with guard:
-            metrics = next(self._it, None)
+        before = self.session.state.batches_seen
+        try:
+            with guard:
+                metrics = next(self._it, None)
+        finally:
+            # trained, whether or not the step raised after its update
+            self.report.batches += self.session.state.batches_seen - before
         if metrics is None:
             self._finished = True
             return
-        self.report.batches += 1
         if self.health_every:
             self._since_probe += 1
             if self._since_probe >= self.health_every:
@@ -195,6 +334,8 @@ class TrainSupervisor:
                 self._probe()
 
     def _recover(self, step: int, exc: BaseException) -> int:
+        if isinstance(exc, MeshDesync):
+            raise exc
         t0 = time.perf_counter()
         self.report.restarts += 1
         if isinstance(exc, HealthError):
@@ -212,11 +353,20 @@ class TrainSupervisor:
         while True:
             restored = self.session.restore_latest()
             self.report.rollbacks += 1
-            if restored is None or self._healthy():
+            healthy = self._healthy()
+            if self._mesh is not None:
+                rows = self._gather([-1 if restored is None else restored,
+                                     int(healthy)])
+                self._agree(rows, 1, "restored step")
+                healthy = all(r[1] for r in rows)
+            if restored is None or healthy:
                 break
             # the checkpoint itself is poisoned (saved after the
             # corruption landed) — quarantine and fall back further
-            ckpt.quarantine(self.session.ckpt_dir, restored)
+            if self._mesh is None or self._mesh.rank == 0:
+                ckpt.quarantine(self.session.ckpt_dir, restored)
+            if self._mesh is not None:
+                self._mesh.control.barrier()
             self.report.ckpt_quarantined += 1
             log.warning("restored checkpoint step %d fails the health "
                         "probe — quarantined, falling back", restored)

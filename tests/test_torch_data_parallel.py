@@ -402,13 +402,6 @@ def _two_rank_session(**kw):
         seed=0), cfg), cfg, device="cpu", mesh=mesh)
 
 
-def test_supervised_recovery_raises_under_a_mesh():
-    """A rollback needs every rank to agree on it (ROADMAP item 10)."""
-    s = _two_rank_session(sentences_per_batch=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        s.train_resilient(max_batches=1)
-
-
 def test_a_batch_that_does_not_split_over_the_ranks_raises():
     s = _two_rank_session(sentences_per_batch=15)
     batch = next(s.pipeline.batches(pad_len=s.cfg.resolved_pad_len))

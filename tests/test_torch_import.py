@@ -1,11 +1,13 @@
 """The torch port stands alone: importing ``repro_torch`` (every module,
 ``repro_torch.distributed``, ``repro_torch.train`` and
-``repro_torch.kernels.quant`` included) and ``chip_smoke`` leaves ``jax``,
+``repro_torch.kernels.quant`` included), ``chip_smoke`` and
+``tools/torch_chaos.py`` (its entry point's imports too) leaves ``jax``,
 ``ml_dtypes`` and the reference package ``repro`` unloaded, and no source of the port names them in an import. A process
 prefetch worker's import path (and the CLI module, which such a worker
 imports as its main module, and the mesh launcher it imports for more
 than one rank) leaves ``torch`` unloaded too, and so does the serving CLI
-module, which its ranks import as their main module."""
+module, which its ranks import as their main module, and the chaos
+tool's top level, which its workers import as theirs."""
 import ast
 import os
 import pathlib
@@ -15,7 +17,16 @@ import pytest
 from tests.conftest import REPO, run_subprocess
 
 PORT = pathlib.Path(REPO) / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [pathlib.Path(REPO) / "chip_smoke.py"]
+TOOL = pathlib.Path(REPO) / "tools" / "torch_chaos.py"
+SOURCES = sorted(PORT.rglob("*.py")) + [pathlib.Path(REPO) / "chip_smoke.py",
+                                        TOOL]
+# tools/torch_chaos.py as a module, without running its entry point
+LOAD_TOOL = """
+        import importlib.util
+        spec = importlib.util.spec_from_file_location("torch_chaos", {tool!r})
+        tool = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tool)
+"""
 
 
 def test_import_leaves_jax_and_reference_unloaded():
@@ -28,6 +39,11 @@ def test_import_leaves_jax_and_reference_unloaded():
         for name in mods:
             importlib.import_module(name)
         import chip_smoke
+        {load_tool}
+        try:
+            tool.main(["--help"])       # imports what its runs import
+        except SystemExit:
+            pass
         bad = sorted(n for n in sys.modules
                      if n.split(".")[0] in ("jax", "repro", "ml_dtypes"))
         print("MODULES", len(mods))
@@ -43,7 +59,7 @@ def test_import_leaves_jax_and_reference_unloaded():
         print("SERVE", sorted(m for m in mods if m.startswith(
             ("repro_torch.serve", "repro_torch.launch.serve"))))
         print("BAD", bad)
-    """.format(repo=REPO)
+    """.format(repo=REPO, load_tool=LOAD_TOOL.format(tool=str(TOOL)).strip())
     out = run_subprocess(code, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
@@ -81,6 +97,7 @@ def test_worker_import_path_is_torch_free():
         import repro_torch.launch.mesh
         import repro_torch.launch.serve
         import repro_torch.launch.train
+        {load_tool}
         cfg = smoke(sentences_per_batch=16, max_sentence_len=16,
                     tile_windows=4, vocab_shard=True)
         pipe = prefetch.AsyncBatchingPipeline(
@@ -93,7 +110,7 @@ def test_worker_import_path_is_torch_free():
         assert batch.plan is not None and batch.exchange is not None
         print("BAD", sorted(n for n in sys.modules
                             if n.split(".")[0] in ("torch", "jax", "repro")))
-    """
+    """.format(load_tool=LOAD_TOOL.format(tool=str(TOOL)).strip())
     out = run_subprocess(code, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
