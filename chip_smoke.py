@@ -5,8 +5,8 @@ main path and times the kernels.
 
     python3 chip_smoke.py [--seed 0] [--sentences-per-batch 10000]
 
-About 12 min on an H100, most of it in the plain versions of phases 5
-and 11.
+About 13 min on an H100, most of it in the host batching of the
+training phases and in the plain versions of phases 5 and 11.
 
 Phases (each prints one line; any failure raises and the script exits
 non-zero):
@@ -35,10 +35,14 @@ non-zero):
               through K3/K4's.
 5. timing   — each kernel on the trainer's first batch (the main path's
               shapes; for K4 the sharded run's first batch, with the
-              exchange timed apart) against its plain version on the same
-              inputs (and K2 == K1 == K3(T=1) bit for bit there), then
-              timed (CUDA events) beside its bound and the plain version's
-              time, in ms per launch and µs per window; one JSON line
+              exchange timed apart): K3 at T=8 against its plain version
+              on the whole batch; K1, K2 and K4 on the batch's first
+              1,000 sentences (their own tile and exchange plans; the
+              plain versions loop in Python), with K2 == K1 == K3(T=1)
+              bit for bit on the whole batch (and K4 == K3 at phase 4);
+              then timed (CUDA events) on the whole batch beside its
+              bound and the plain version's time on the sentences it
+              held, in ms per launch and µs per window; one JSON line
               lists them. For K3/K4 also the batch's strict-tile share,
               its mean unique rows per tile, and the columns the
               cross-tile prefetch took and rejected (the kernel's device
@@ -179,6 +183,22 @@ non-zero):
               train CLI on 2 ranks with ``--vocab-shard 2 --max-restarts 3
               --health-every 1 --ckpt-dir ... --ckpt-every 2`` must print
               the plain run's ``final_digest``.
+14. lm      — the LM substrate (``repro_torch.models``, no kernel: plain
+              torch products, f32 with TF32 off) at the published widths
+              of qwen3-8b, moonshot-v1-16b-a3b and mamba2-1.3b, depth cut
+              to 2 layers, parameters from a seeded ``torch.Generator`` on
+              the card, B=1, S=512: ``forward``, ``lm_loss`` with its
+              backward (every gradient finite), ``prefill`` and 16
+              ``decode_step``s, each timed (CUDA events) beside its bound
+              (2 FLOPs per product parameter and token at the f32 peak;
+              a decode token's product-parameter bytes at the memory
+              rate), tokens/s and peak memory. Gates: prefill + decode at
+              an f32 cache equal ``forward``'s logits at those positions
+              (relative error under 1e-4; for the MoE at a capacity that
+              drops no token), and the CPU on the same parameters at 32
+              tokens gives the card's logits within 1e-4 relative, and
+              for the MoE the same routing indices; ``compress_tree`` of
+              a 4M-element f32 tree gives the CPU's int8 bytes and scales.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the repository's ``src/`` beside it, the script fails before
@@ -202,6 +222,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 peak outside the tensor cores
 ATOL, RTOL = 2e-5, 1e-4
+# phase 5 holds K1, K2 and K4 against their plain versions on this prefix
+# of the trainer's first batch (the plain versions loop in Python on the
+# host), K3 at T=8 on the whole batch
+PARITY_SENTENCES = 1000
 
 
 def _line(phase: str, **kw) -> None:
@@ -655,9 +679,10 @@ def _check_prefetch(name, stats, dev_counts):
 
 def phase_sharded_shape(torch, np, sess, step_s):
     """K4 on the sharded session's first batch: held against its plain
-    version and timed (CUDA events) beside its bound; the exchange (route,
-    gather and write-back of both tables) timed apart; the kernel's share
-    of the trainer's step."""
+    version on the batch's first ``PARITY_SENTENCES`` sentences (their own
+    exchange plan) and timed (CUDA events) on the whole batch beside its
+    bound; the exchange (route, gather and write-back of both tables)
+    timed apart; the kernel's share of the trainer's step."""
     from repro_torch.distributed.vocab_placement import plan_exchange
     from repro_torch.kernels import fullw2v, ops, ref
 
@@ -674,27 +699,37 @@ def phase_sharded_shape(torch, np, sess, step_s):
     (hot_in, cold_in), (hot_out, cold_out) = (
         [torch.from_numpy(a).cuda() for a in pl.split(t)] for t in full)
     run = ops._VocabShardedRun("cuda_tiled", static, pl, exchange="exact")
-    route = run.route(step)
-    got_in, got_out = run.gather(route, cold_in), run.gather(route, cold_out)
-    args = (step.tokens, step.negs, step.lengths, step.lr, static.w_f,
-            static.tile, step.plan_uniq, step.plan_scatter, step.plan_ucount,
-            step.plan_strict)
 
-    def tables():
-        return (hot_in.clone(), hot_out.clone(), got_in.clone(),
-                got_out.clone())
+    def working(step):
+        """The split working tables of ``step`` and the kernel's
+        arguments after them."""
+        route = run.route(step)
+        split = (hot_in, hot_out, run.gather(route, cold_in),
+                 run.gather(route, cold_out))
+        return split, (step.tokens, step.negs, step.lengths, step.lr,
+                       static.w_f, static.tile, step.plan_uniq,
+                       step.plan_scatter, step.plan_ucount, step.plan_strict)
 
-    want = tables()
+    head = _head(batch, PARITY_SENTENCES)
+    split, args = working(plan_exchange(head, pl).step_inputs(
+        cfg.lr, torch.device("cuda")))
+    want = [t.clone() for t in split]
     plain_ms = _host_ms(torch, lambda: ref.batch_sgns_tiled_fused_ref(
         *want, *args, gemm_windows=static.gemm_windows))
-    got = tables()
+    got = [t.clone() for t in split]
     fullw2v.fullw2v_cuda_tiled_fused(*got, *args,
                                      gemm_windows=static.gemm_windows)
     torch.cuda.synchronize()
-    err = max(_check_close(torch, f"cuda_tiled_fused {part} (main shape)",
-                           g, w)
+    err = max(_check_close(torch, f"cuda_tiled_fused {part} (main shape, "
+                           f"first {PARITY_SENTENCES})", g, w)
               for part, g, w in zip(("hot_in", "hot_out", "got_in",
                                      "got_out"), got, want))
+    split, args = working(step)
+
+    def tables():
+        return tuple(t.clone() for t in split)
+
+    got = tables()
     stats = tiled_plan_stats(np, ex.plan_uniq, ex.plan_ucount,
                              ex.plan_strict, ex.lengths, static.tile)
     _check_prefetch("cuda_tiled_fused", stats, device_prefetch_counts(
@@ -725,6 +760,8 @@ def phase_sharded_shape(torch, np, sess, step_s):
     windows = int(batch.lengths.sum())
     out = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=b_ms,
                bound_by=b_by, windows=windows,
+               parity_sentences=int(head.tokens.shape[0]),
+               parity_windows=int(head.lengths.sum()),
                us_per_window=ms * 1e3 / windows,
                S=int(batch.tokens.shape[0]), exchange_ms=exchange_ms,
                hot=pl.hot, R=ex.request_width, cold_rows=ex.n_distinct[0],
@@ -732,6 +769,7 @@ def phase_sharded_shape(torch, np, sess, step_s):
     _line("main-shape", kernel="cuda_tiled_fused", S=out["S"],
           L=int(batch.tokens.shape[1]), hot=pl.hot, R=ex.request_width,
           cold_rows=ex.n_distinct[0], max_abs_err=f"{err:.3e}",
+          parity_sentences=out["parity_sentences"],
           plain_ms=f"{plain_ms:.1f}")
     _line("timing", kernel="cuda_tiled_fused", ms_per_launch=f"{ms:.3f}",
           us_per_window=f"{out['us_per_window']:.4f}",
@@ -741,18 +779,26 @@ def phase_sharded_shape(torch, np, sess, step_s):
     return out
 
 
-def phase_main_shape(torch, np, pipe, cfg, names):
+def phase_main_shape(torch, np, pipe, cfg, names, parity_sentences=None):
     """Each named kernel on the pipeline's first batch, at the shapes the
-    main path gives it: held against its plain version on the same inputs
-    (same tolerance as phase 3), then timed (CUDA events) beside its bound
-    and the plain version's time. K1 and K2 report the instantiation they
-    took, and must equal each other and K3 at T=1 (its plan from
-    ``plan_tiles``) bit for bit."""
+    main path gives it: held against its plain version on the whole batch,
+    or on its first ``parity_sentences`` sentences (same tolerance as
+    phase 3; the plain version's Python loop is the time this phase would
+    otherwise spend), then timed (CUDA events) on the whole batch beside
+    its bound and the plain version's time on the sentences it held. K1
+    and K2 report the instantiation they took, and must equal each other
+    and K3 at T=1 (its plan from ``plan_tiles``) bit for bit on the whole
+    batch."""
     from repro_torch.data.batching import plan_tiles
     from repro_torch.kernels import fullw2v, ops, registry
 
     batch = next(pipe.batches(pad_len=cfg.resolved_pad_len, epoch=0))
     step = batch.step_inputs(cfg.lr, torch.device("cuda"))
+    head, step_head, where = batch, step, "whole batch"
+    if parity_sentences and parity_sentences < len(batch.tokens):
+        head = _head(batch, parity_sentences)
+        step_head = head.step_inputs(cfg.lr, torch.device("cuda"))
+        where = f"first {parity_sentences}"
     static = ops.static_for(cfg, step.tile)
     gen = torch.Generator(device="cuda").manual_seed(0)
     shape = (pipe.table_rows, cfg.dim)
@@ -764,7 +810,8 @@ def phase_main_shape(torch, np, pipe, cfg, names):
 
     plain = registry.get("torch_tiled" if step.has_plan else "torch")
     want = tables()
-    plain_ms = _host_ms(torch, lambda: plain.update(*want, step, static))
+    plain_ms = _host_ms(torch, lambda: plain.update(*want, step_head,
+                                                    static))
     extra = 0
     if batch.plan is not None:
         p = batch.plan
@@ -776,13 +823,17 @@ def phase_main_shape(torch, np, pipe, cfg, names):
     for name in names:
         be = registry.get(name)
         got = tables()
-        be.update(*got, step, static)
+        be.update(*got, step_head, static)
         torch.cuda.synchronize()
+        err = max(_check_close(torch, f"{name} w_in (main shape, {where})",
+                               got[0], want[0]),
+                  _check_close(torch, f"{name} w_out (main shape, {where})",
+                               got[1], want[1]))
+        if head is not batch:
+            got = tables()
+            be.update(*got, step, static)
+            torch.cuda.synchronize()
         results[name] = (got[0].clone(), got[1].clone())
-        err = max(_check_close(torch, f"{name} w_in (main shape)", got[0],
-                               want[0]),
-                  _check_close(torch, f"{name} w_out (main shape)", got[1],
-                               want[1]))
         fullw2v.reset_launch_counts()
         ms = _time_ms(torch, lambda: be.update(*got, step, static), 2)
         took = [k for k, v in {**fullw2v.SEQ_LAUNCHES,
@@ -791,13 +842,16 @@ def phase_main_shape(torch, np, pipe, cfg, names):
         out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
                          bound_ms=b_ms, bound_by=b_by, windows=windows,
                          us_per_window=ms * 1e3 / windows,
-                         S=int(batch.tokens.shape[0]))
+                         S=int(batch.tokens.shape[0]),
+                         parity_sentences=int(head.tokens.shape[0]),
+                         parity_windows=int(head.lengths.sum()))
         inst = {}
         if took:
             out[name]["instantiation"] = took[0]
             inst = dict(instantiation=took[0])
         _line("main-shape", kernel=name, S=out[name]["S"],
               L=int(batch.tokens.shape[1]), max_abs_err=f"{err:.3e}",
+              parity_sentences=out[name]["parity_sentences"],
               plain_ms=f"{plain_ms:.1f}", **inst)
         _line("timing", kernel=name, ms_per_launch=f"{ms:.3f}",
               us_per_window=f"{out[name]['us_per_window']:.4f}",
@@ -1034,7 +1088,7 @@ def phase_chaos(torch, args):
     fullw2v.reset_launch_counts()
     r = run_chaos(sched, backend="auto", device="cuda", cfg=cfg,
                   corpus=corpus)
-    n = _launched(r["backend"], sched.max_batches + r["batches"])
+    n = _launched(r["backend"], sched.max_batches + r["batches_trained"])
     bad = []
     if r["digest_match"] != 1:
         bad.append("the faulted run's tables differ from the fault-free "
@@ -1055,7 +1109,7 @@ def phase_chaos(torch, args):
                                "faults_scheduled", "restarts", "rollbacks",
                                "health_failures", "heals", "workers_killed",
                                "ckpts_truncated", "ckpt_quarantined",
-                               "batches", "probes")},
+                               "batches", "batches_trained", "probes")},
           probe_ms_per_batch=f"{probe_ms:.3f}",
           recovery_s=f"{r['recovery_seconds']:.3f}",
           wall_s=f"{r['wall_seconds']:.3f}")
@@ -2708,7 +2762,7 @@ def mesh_chaos_rank(mesh, args, frac: float, tmp: str) -> dict:
                           mesh=mesh,
                           ckpt_dir=os.path.join(tmp, name.replace(" ", "_")))
         # the baseline's batches, then every batch the faulted run trained
-        mine = _launched(kernel, sched.max_batches + r["batches"])
+        mine = _launched(kernel, sched.max_batches + r["batches_trained"])
         every = _all_ranks(mesh, mine)
         spied = _all_ranks(mesh, {
             "batch_vote_ms_median": 1e3 * float(np.median(votes["batch"])),
@@ -2746,7 +2800,7 @@ def mesh_chaos_rank(mesh, args, frac: float, tmp: str) -> dict:
                       "digest_match", "reports_equal", "faults_fired",
                       "faults_scheduled", "restarts", "rollbacks",
                       "health_failures", "ckpt_quarantined", "heals",
-                      "workers_killed", "batches")},
+                      "workers_killed", "batches", "batches_trained")},
                   bitwise="==fault-free 2-rank run")
         launches.setdefault(kernel, {})[f"N=2 ci {name}"] = every
     return launches
@@ -2804,6 +2858,252 @@ def phase_mesh_chaos(args, frac: float) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the LM substrate (repro_torch.models) at published widths
+# ---------------------------------------------------------------------------
+
+# three of the repo's architectures at their full configs' widths, depth cut
+# to LM_LAYERS layers (the one reduction): dense with qk_norm and GQA 32/8,
+# MoE 64 experts top-6, Mamba2 SSD with tied embeddings
+LM_ARCHS = ("qwen3-8b", "moonshot-v1-16b-a3b", "mamba2-1.3b")
+LM_LAYERS = 2
+LM_S = 512               # B=1 tokens per forward, backward and prefill
+LM_DECODE = 16           # decode steps after the prefill
+LM_CPU_S = 32            # tokens of the card-against-CPU check
+LM_REL = 1e-4            # max |diff| / max |ref| of every logits gate
+COMPRESS_ELEMS = 4 * 2 ** 20
+
+
+@contextlib.contextmanager
+def route_spy():
+    """The routing indices of every ``moe_block`` call while inside (the
+    spy wraps ``repro_torch.models.moe._route``), on the host."""
+    from repro_torch.models import moe
+
+    real, seen = moe._route, []
+
+    def spy(p, xf, k):
+        gvals, gidx = real(p, xf, k)
+        seen.append(gidx.cpu())
+        return gvals, gidx
+
+    moe._route = spy
+    try:
+        yield seen
+    finally:
+        moe._route = real
+
+
+def _rel(torch, got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _pad_kv(torch, cache, n):
+    """The attention caches ``n`` positions longer (the decode slots)."""
+    return tuple({k: (torch.nn.functional.pad(v, (0, 0, 0, 0, 0, n))
+                      if k in ("k", "v") else v) for k, v in blk.items()}
+                 for blk in cache)
+
+
+def lm_arch(torch, np, args, name: str) -> dict:
+    """One architecture on the card (f32, TF32 off, B=1): forward,
+    ``lm_loss`` with its backward, a prefill of ``LM_S`` tokens and
+    ``LM_DECODE`` decode steps, each timed (CUDA events) beside its bound;
+    gates: every gradient finite, prefill + decode at an f32 cache equal to
+    the forward's logits at those positions, and the CPU's logits (and,
+    for MoE, its routing indices) on the same parameters at ``LM_CPU_S``
+    tokens."""
+    from repro_torch.configs import get_arch
+    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.models import lm
+
+    full_cfg = get_arch(name)
+    cfg = dataclasses.replace(
+        full_cfg, n_layers=LM_LAYERS * len(lm.block_pattern(full_cfg)))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, seed=args.seed, device="cuda")
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"lm {name}: {n_params} parameters, "
+                             f"param_count {cfg.param_count()}")
+    rng = np.random.default_rng(args.seed)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, LM_S + LM_DECODE))).cuda()
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_S))).cuda()
+    x = toks[:, :LM_S]
+    out = {}
+
+    with torch.no_grad():
+        out["forward_ms"] = _time_ms(torch, lambda: lm.forward(cfg, params,
+                                                              x), 3)
+        logits = lm.forward(cfg, params, x)
+    if logits.shape != (1, LM_S, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"lm {name}: forward gave {tuple(logits.shape)}"
+                             f" or non-finite logits")
+
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+
+    def train_step():
+        for t in leaves:
+            t.grad = None
+        lm.lm_loss(cfg, params, x, labels).backward()
+
+    out["fwd_bwd_ms"] = _time_ms(torch, train_step, 3)
+    bad = [i for i, t in enumerate(leaves)
+           if t.grad is None or not bool(torch.isfinite(t.grad).all())]
+    if bad:
+        raise AssertionError(f"lm {name}: {len(bad)} gradient leaves "
+                             f"missing or non-finite")
+    for t in leaves:
+        t.grad = None
+        t.requires_grad_(False)
+
+    # the decode gate holds no token dropped, so the MoE's capacity takes
+    # every token (the reference's smoke configs do the same): with drops a
+    # token's output depends on how many tokens share its batch
+    gate_cfg = cfg if cfg.moe is None else dataclasses.replace(
+        cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    with torch.no_grad():
+        out["prefill_ms"] = _time_ms(torch, lambda: lm.prefill(
+            cfg, params, x, cache_dtype=torch.float32), 3)
+        want = lm.forward(gate_cfg, params, toks)
+        last, cache, clen = lm.prefill(gate_cfg, params, x,
+                                       cache_dtype=torch.float32)
+        cache = _pad_kv(torch, cache, LM_DECODE)
+        errs = [_rel(torch, last, want[:, LM_S - 1])]
+        c = cache
+        for i in range(LM_DECODE):
+            dec, c = lm.decode_step(gate_cfg, params, c, clen + i,
+                                    toks[:, LM_S + i:LM_S + i + 1])
+            errs.append(_rel(torch, dec, want[:, LM_S + i]))
+        out["decode_rel_err"] = max(errs)
+        if out["decode_rel_err"] >= LM_REL:
+            raise AssertionError(f"lm {name}: prefill+decode differ from "
+                                 f"forward by {errs} (relative)")
+
+        def decode_all():
+            c = cache
+            for i in range(LM_DECODE):
+                _, c = lm.decode_step(gate_cfg, params, c, clen + i,
+                                      toks[:, LM_S + i:LM_S + i + 1])
+
+        out["decode_ms"] = _time_ms(torch, decode_all, 2) / LM_DECODE
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the card against the CPU on the same parameters and tokens
+    with torch.no_grad():
+        short = x[:, :LM_CPU_S]
+        with route_spy() as card_routes:
+            card = lm.forward(cfg, params, short)
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        with route_spy() as cpu_routes:
+            cpu = lm.forward(cfg, cpu_params, short.cpu())
+        out["cpu_rel_err"] = _rel(torch, card.cpu(), cpu)
+    del cpu_params
+    if out["cpu_rel_err"] >= LM_REL:
+        raise AssertionError(f"lm {name}: the card's logits differ from the "
+                             f"CPU's by {out['cpu_rel_err']:.3e} (relative)")
+    if cfg.moe is not None:
+        if len(card_routes) != LM_LAYERS or len(card_routes) != \
+                len(cpu_routes) or not all(
+                    torch.equal(a, b) for a, b in zip(card_routes,
+                                                      cpu_routes)):
+            raise AssertionError(f"lm {name}: the card's routing indices "
+                                 f"differ from the CPU's")
+        out["routes_equal"] = len(card_routes)
+
+    # bounds: 2 FLOPs per product parameter and token at the f32 peak
+    # (the input embedding is a lookup, not a product), and the product
+    # parameters' bytes a decode token reads at the memory rate
+    mm = cfg.active_param_count() - (
+        0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model)
+    fwd_bound = 2 * mm * LM_S / F32_FLOPS_PER_S * 1e3
+    out.update(params=n_params, product_params=mm,
+               forward_bound_ms=fwd_bound, fwd_bwd_bound_ms=3 * fwd_bound,
+               prefill_bound_ms=fwd_bound,
+               decode_bound_ms=4 * mm / HBM_BYTES_PER_S * 1e3)
+    _line("lm", arch=name, layers=cfg.n_layers, d=cfg.d_model,
+          vocab=cfg.vocab, params=n_params, B=1, S=LM_S,
+          forward_ms=f"{out['forward_ms']:.3f}",
+          forward_bound_ms=f"{fwd_bound:.3f}",
+          forward_tok_per_s=f"{LM_S / out['forward_ms'] * 1e3:.0f}",
+          fwd_bwd_ms=f"{out['fwd_bwd_ms']:.3f}",
+          fwd_bwd_bound_ms=f"{3 * fwd_bound:.3f}",
+          fwd_bwd_tok_per_s=f"{LM_S / out['fwd_bwd_ms'] * 1e3:.0f}",
+          prefill_ms=f"{out['prefill_ms']:.3f}",
+          prefill_bound_ms=f"{fwd_bound:.3f}",
+          decode_ms_per_token=f"{out['decode_ms']:.3f}",
+          decode_bound_ms=f"{out['decode_bound_ms']:.3f}",
+          decode_tok_per_s=f"{1e3 / out['decode_ms']:.1f}",
+          peak_gib=f"{out['peak_gib']:.2f}",
+          decode_rel_err=f"{out['decode_rel_err']:.2e}",
+          cpu_rel_err=f"{out['cpu_rel_err']:.2e}",
+          **({"routes_equal": out["routes_equal"]} if cfg.moe else {}),
+          note="2-layer cut at published width, random weights; not a "
+               "training throughput")
+    return out
+
+
+def lm_compression(torch, np, seed: int) -> dict:
+    """``compress_tree`` (int8 error feedback) of a seeded
+    ``COMPRESS_ELEMS``-element f32 tree on the card, two rounds: the CPU's
+    int8 bytes and scales, bit for bit."""
+    from repro_torch.distributed import compression as comp
+    from repro_torch.tree import tree_leaves, tree_map
+
+    rng = np.random.default_rng(seed)
+    n = COMPRESS_ELEMS
+    rounds = [{"w": rng.normal(0, 2, (n // 2 // 1024, 1024)).astype(
+                   np.float32),
+               "b": (rng.standard_cauchy(n // 4).astype(np.float32),
+                     [(rng.normal(0, 1e-3, n // 4)).astype(np.float32)])}
+              for _ in range(2)]
+    got = {}
+    for device in ("cuda", "cpu"):
+        tree0 = tree_map(lambda a: torch.from_numpy(a).to(device),
+                         rounds[0])
+        ef = comp.ef_init(tree0)
+        outs = []
+        for r in rounds:
+            tree = tree_map(lambda a: torch.from_numpy(a).to(device), r)
+            q, sc, ef = comp.compress_tree(tree, ef)
+            outs.append(([t.cpu() for t in tree_leaves(q)],
+                         [t.cpu() for t in tree_leaves(sc)]))
+        got[device] = outs
+    elems = sum(t.numel() for t in got["cpu"][0][0])
+    for (cq, cs), (hq, hs) in zip(got["cuda"], got["cpu"]):
+        if not (all(torch.equal(a, b) for a, b in zip(cq, hq))
+                and all(torch.equal(a, b) for a, b in zip(cs, hs))):
+            raise AssertionError("compress_tree on the card gave other int8 "
+                                 "bytes or scales than the CPU")
+    _line("lm", compression="compress_tree int8 error feedback", rounds=2,
+          elements=elems, bitwise="card==CPU (int8 bytes and scales)")
+    return {"elements": elems}
+
+
+def phase_lm(torch, np, args) -> dict:
+    """Phase 14 (see the module docstring); TF32 is off inside and the
+    flags are put back after."""
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    t0 = time.perf_counter()
+    try:
+        out = {name: lm_arch(torch, np, args, name) for name in LM_ARCHS}
+        out["compression"] = lm_compression(torch, np, args.seed)
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+    _line("lm", phase_seconds=f"{time.perf_counter() - t0:.1f}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2811,6 +3111,7 @@ def main(argv=None) -> int:
                     default=10_000)
     ap.add_argument("--batches", type=int, default=3)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if args.batches < 2:
         ap.error("--batches must be at least 2: phase 7 resumes mid-run")
 
@@ -2879,8 +3180,10 @@ def main(argv=None) -> int:
             "cuda_tiled_fused": h_fused}
 
     # 5. each kernel at the trainer's batch shape: parity, then time
+    # (K1 and K2 on a prefix: K3(T=1) equals them bit for bit on the whole
+    # batch; K3 at T=8 on the whole batch, and K4 equals it at phase 4)
     timing = phase_main_shape(torch, np, sess1.pipeline, sess1.cfg,
-                              ["cuda", "cuda_pipelined"])
+                              ["cuda", "cuda_pipelined"], PARITY_SENTENCES)
     timing.update(phase_main_shape(torch, np, sess8.pipeline, sess8.cfg,
                                    ["cuda_tiled"]))
     timing["cuda_tiled_fused"] = phase_sharded_shape(torch, np, sess_vs,
@@ -2933,6 +3236,10 @@ def main(argv=None) -> int:
     # ranks, its rank-local faults on rank 1, and the CLI's resilience
     # flags on 2 ranks
     chaos_launches = phase_mesh_chaos(args, frac)
+
+    # 14. the LM substrate at published widths (2 layers): forward, loss
+    # and backward, prefill and decode, against the CPU; int8 compression
+    phase_lm(torch, np, args)
     mixed_launches = {"cuda": {QUALITY_MIXED: quality["mixed"]["launches"]}}
     for (tables, tile), m in mixed.items():
         mixed_launches.setdefault(m["kernel"], {})[tables] = m["launches"]
@@ -2960,6 +3267,8 @@ def main(argv=None) -> int:
             "max_abs_err": timing[name]["max_abs_err"],
             "ms": timing[name]["ms"],
             "plain_ms": timing[name]["plain_ms"],
+            # max_abs_err and plain_ms: the batch's first sentences
+            "parity_sentences": timing[name]["parity_sentences"],
             "bound_ms": timing[name]["bound_ms"],
             "bound_by": timing[name]["bound_by"],
             "library_ms": None,
@@ -2993,6 +3302,7 @@ def main(argv=None) -> int:
         # faulted run, replays included), by run
         row["mesh_chaos_launches"] = chaos_launches.get(name, {})
         kernels.append(row)
+    _line("total", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi, flush=True)     # the card and its limit, beside the numbers
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,13 @@ This package imports ``torch``, numpy and the standard library only — never
 ``jax`` and never ``repro`` — and mirrors the reference's module names:
 
 configs/w2v.py   — ``W2VConfig`` (copied verbatim)
+configs/         — the LM substrate's ``ArchConfig`` system and its 10 arch
+                   presets (``base.py``, copies of the reference's)
+models/          — the LM substrate: layers, Mamba2 SSD, MoE, the decoder
+                   (forward, ``lm_loss``, ``prefill``, ``decode_step``)
+distributed/     — vocabulary placement and exchange plans, collectives,
+                   ``elastic`` mesh plans (``build`` makes a device mesh)
+                   and ``compression`` (int8 error feedback)
 data/            — host batching (numpy copies: bit-identical batches/plans)
                    and the async prefetch pipeline (``data/prefetch.py``)
 core/sgns.py     — the window math in torch
@@ -12,7 +19,8 @@ core/trainer.py  — ``TrainSession`` over ``kernels.ops.step``
 core/quality.py  — planted-cluster quality metrics (numpy copy)
 kernels/         — plain torch versions, CUDA kernels, registry, ``step``
 train/           — checkpoints, recovery primitives, the supervisor, chaos
-convert.py       — start from the reference's tables
+convert.py       — start from the reference's tables (and LM parameters)
+tree.py          — map over nested dicts, tuples and lists of tensors
 launch/train.py  — ``python -m repro_torch.launch.train w2v``
 
 Entry points run on the GPU unless the caller asks for the CPU.

@@ -1,4 +1,5 @@
-"""Start the port from the reference's tables.
+"""Start the port from the reference's tables (and the LM substrate from
+the reference's parameter tree).
 
 The reference draws its init with ``jax.random`` and the port with a
 ``torch.Generator``: the same seed gives different numbers. Handing the
@@ -14,7 +15,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from repro_torch.core.trainer import TrainState
+from repro_torch.core.trainer import TrainState, resolve_device
+from repro_torch.tree import tree_map
 
 _REPLICATED = ("w_in", "w_out")
 _SPLIT = ("hot_in", "hot_out", "cold_in", "cold_out")
@@ -97,3 +99,25 @@ def params_from_reference(params: Mapping[str, np.ndarray],
     return TrainState(w_in=put[0], w_out=put[1], cold_in=put[2],
                       cold_out=put[3], scale_in=scales[0],
                       scale_out=scales[1])
+
+
+_LM_KEYS = {"embed", "blocks", "final_norm"}
+
+
+def lm_params_from_reference(params: Mapping, device=None) -> dict:
+    """The reference's LM parameter tree (``repro.models.lm.init_params``:
+    ``embed``, the ``blocks`` tuple of per-position stacks, ``final_norm``
+    and ``unembed`` unless tied), given as numpy arrays, as the port's tree
+    on ``device`` (the GPU unless the caller asks for the CPU): the same
+    keys, shapes and storage bits (a bf16 leaf as its bits). The packages
+    draw different numbers from one seed, so parity runs start both from
+    this tree."""
+    missing = _LM_KEYS - set(params)
+    extra = set(params) - _LM_KEYS - {"unembed"}
+    if missing or extra:
+        raise ValueError(
+            f"expected the reference's LM tree {{embed, blocks, final_norm"
+            f"[, unembed]}}; missing {sorted(missing)}, unexpected "
+            f"{sorted(extra)}")
+    device = resolve_device(device)
+    return tree_map(lambda a: _tensor(np.asarray(a), device), dict(params))

@@ -45,7 +45,13 @@ pool (``BrokenProcessPool``) — the pipeline rebuilds the pool and
 recomputes every batch the dead pool still owed. Finalization is a pure
 function of ``(packed, cfg, epoch)``, so the recomputed batches are
 bit-identical and the emitted stream never changes
-(``PrefetchStats.heals`` counts pool rebuilds). A dead *producer* thread
+(``PrefetchStats.heals`` counts pool rebuilds). A worker killed while it
+held a lock of the pool's queues or had sent part of a result can leave the
+pool's own bookkeeping waiting forever, with its futures never failing: so
+a consumer waits on a future in bounded polls and heals when the pool has
+lost a worker, and a heal tears the old pool down for good (its surviving
+workers killed, the parent's end of its result pipe closed), so that no
+thread or future is left waiting on it. A dead *producer* thread
 surfaces as a :class:`PipelineFault` on the consumer within a bounded
 poll interval. Task *exceptions* (the finalize function itself raising)
 propagate: they are deterministic, so retrying them would fail
@@ -61,7 +67,8 @@ import queue
 import threading
 import time
 from concurrent.futures import (BrokenExecutor, CancelledError, Executor,
-                                Future)
+                                Future, ProcessPoolExecutor)
+from concurrent.futures import TimeoutError as FutureTimeout
 from typing import Iterator, List, Optional
 
 from repro_torch.configs.w2v import W2VConfig
@@ -75,6 +82,9 @@ log = logging.getLogger("repro_torch.prefetch")
 
 # Seconds a process pool may take to start and initialize every worker.
 POOL_START_TIMEOUT_S = 300.0
+# Seconds between a consumer's checks, while it waits on a batch, that the
+# batch's pool has not lost a worker.
+HEAL_POLL_S = 1.0
 
 # ---------------------------------------------------------------------------
 # Process-mode worker state: shipped once via the pool initializer so each
@@ -152,6 +162,24 @@ class PrefetchStats:
         return sum(d) / len(d) if d else 0.0
 
 
+def _pool_parts(ex: Optional[Executor]) -> tuple:
+    """A process pool's ``pid -> Process`` map and the parent's end of its
+    result pipe (empty and None for a thread pool, or once the pool is shut
+    down). Both are private to ``concurrent.futures``: a Python whose pool
+    lacks them raises here, rather than leave a heal unable to tear its
+    pool down."""
+    if not isinstance(ex, ProcessPoolExecutor):
+        return {}, None
+    try:
+        procs, results = ex._processes, ex._result_queue
+        return dict(procs or {}), (None if results is None
+                                   else results._writer)
+    except AttributeError as e:
+        raise RuntimeError(
+            f"this Python's ProcessPoolExecutor lacks what a pool heal "
+            f"needs ({e}); use prefetch_mode='thread'") from e
+
+
 class AsyncBatchingPipeline(BatchingPipeline):
     """Drop-in :class:`BatchingPipeline` whose ``batches()`` produces ahead
     of the consumer. Bit-identical stream, overlapped wall clock.
@@ -189,12 +217,13 @@ class AsyncBatchingPipeline(BatchingPipeline):
     # -- executor ------------------------------------------------------------
     def _make_executor(self) -> Executor:
         if self.mode == "process":
-            from concurrent.futures import ProcessPoolExecutor
-            return ProcessPoolExecutor(
+            ex = ProcessPoolExecutor(
                 max_workers=self.workers, mp_context=_process_context(),
                 initializer=_proc_init,
                 initargs=(self.cfg, self.sampler, self.placement,
                           self.bag_table))
+            _pool_parts(ex)             # a heal can tear this pool down
+            return ex
         from concurrent.futures import ThreadPoolExecutor
         return ThreadPoolExecutor(max_workers=self.workers,
                                   thread_name_prefix="w2v-finalize")
@@ -228,16 +257,35 @@ class AsyncBatchingPipeline(BatchingPipeline):
         """Replace a broken worker pool (caller holds ``_ex_lock``). The
         dead pool's pending finalizes are recomputed by whoever owns their
         ``_Pending`` — deterministic, so the stream stays bit-identical."""
-        try:
-            self._executor.shutdown(wait=False, cancel_futures=True)
-        except Exception:  # noqa: BLE001 — a broken pool may refuse even this
-            pass
+        self._discard(self._executor)
         self._executor = self._make_executor()
         self._warm(self._executor)
         self._ex_gen += 1
         self.prefetch.heals += 1
         log.warning("worker pool died — respawned (heal #%d)",
                     self.prefetch.heals)
+
+    @staticmethod
+    def _discard(ex: Executor) -> None:
+        """Tear a process pool with a dead worker down for good. A worker
+        killed while it held a lock of the pool's call queue, or while it
+        was sending a result, leaves the other workers blocked behind it
+        and the pool's manager thread reading a message that never ends:
+        its futures never fail and interpreter exit would wait for it. So
+        the surviving workers are killed and the parent's end of the
+        result pipe is closed; the manager thread then reads EOF, fails
+        what is pending and exits. Every task of the pool is recomputed
+        elsewhere, so nothing is lost."""
+        procs, writer = _pool_parts(ex)
+        try:
+            ex.shutdown(wait=False, cancel_futures=True)
+        except Exception:  # noqa: BLE001 — a broken pool may refuse even this
+            pass
+        for p in procs.values():
+            if p.exitcode is None:
+                p.kill()
+        if writer is not None:
+            writer.close()
 
     def _submit_pending(self, packed: PackedBatch, epoch: int) -> _Pending:
         """Producer-side submit that survives a dead pool: a pool with a
@@ -259,28 +307,38 @@ class AsyncBatchingPipeline(BatchingPipeline):
     def _result_healing(self, pend: _Pending) -> Batch:
         """Consumer-side result that survives a dead pool: on breakage,
         heal (unless another thread already did) and recompute this batch
-        on the fresh pool. Task exceptions propagate — deterministic
-        inputs would just fail again."""
+        on the fresh pool. The wait polls every ``HEAL_POLL_S``: a pool
+        that lost a worker may never fail the future (see :meth:`_discard`),
+        so a poll that finds the batch's pool replaced or short of a worker
+        recomputes it too. Task exceptions propagate — deterministic inputs
+        would just fail again."""
         retries = 0
         while True:
             try:
-                return pend.future.result()
-            except (BrokenExecutor, CancelledError) as e:
-                retries += 1
-                if retries > self.workers + 2:
-                    raise PipelineFault(
-                        f"worker pool kept dying ({retries} heals for one "
-                        f"batch)") from e
+                return pend.future.result(timeout=HEAL_POLL_S)
+            except FutureTimeout:
                 with self._ex_lock:
-                    if pend.gen == self._ex_gen:
-                        self._heal_locked()
-                    pend.future = self._submit(self._executor, pend.packed,
-                                               pend.epoch)
-                    pend.gen = self._ex_gen
+                    if pend.gen == self._ex_gen and not self._lost_worker():
+                        continue           # still computing on a whole pool
+                err: BaseException = PipelineFault(
+                    "the batch's worker pool lost a worker")
+            except (BrokenExecutor, CancelledError) as e:
+                err = e
+            retries += 1
+            if retries > self.workers + 2:
+                raise PipelineFault(
+                    f"worker pool kept dying ({retries} heals for one "
+                    f"batch)") from err
+            with self._ex_lock:
+                if pend.gen == self._ex_gen:
+                    self._heal_locked()
+                pend.future = self._submit(self._executor, pend.packed,
+                                           pend.epoch)
+                pend.gen = self._ex_gen
 
     def _workers(self) -> dict:
         """The process pool's ``pid -> Process`` map (empty for threads)."""
-        return dict(getattr(self._executor, "_processes", None) or {})
+        return _pool_parts(self._executor)[0]
 
     def _lost_worker(self) -> bool:
         """Whether a worker of the current process pool has exited (no
@@ -384,8 +442,12 @@ class AsyncBatchingPipeline(BatchingPipeline):
                 if isinstance(item, _Pending):
                     item.future.cancel()
             producer.join(timeout=10.0)
-            # self._executor, not a local: healing may have replaced it
-            self._executor.shutdown(wait=True, cancel_futures=True)
+            # self._executor, not a local: healing may have replaced it; a
+            # pool that lost a worker since may never finish shutting down
+            if self._lost_worker():
+                self._discard(self._executor)
+            else:
+                self._executor.shutdown(wait=True, cancel_futures=True)
 
     @staticmethod
     def _ready_depth(out: "queue.Queue[object]") -> int:

@@ -1,5 +1,9 @@
 """Distributed pieces of the torch port: vocabulary placement and the
-per-batch row-exchange plan (numpy, bit-identical to the reference's)."""
+per-batch row-exchange plan (numpy, bit-identical to the reference's),
+re-exported here; ``collectives``, ``elastic`` (mesh plans after device
+loss, ``build`` into a device mesh) and ``compression`` (int8 error
+feedback) are imported by name, so that this package's import stays
+torch-free for the prefetch workers."""
 from repro_torch.distributed.vocab_placement import (
     VocabExchange,
     VocabPlacement,

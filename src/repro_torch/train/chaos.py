@@ -309,6 +309,7 @@ def run_chaos(schedule: ChaosSchedule, *,
             "votes": report.votes,
             "vote_seconds": report.vote_seconds,
             "batches": report.batches,
+            "batches_trained": report.batches_trained,
             "wall_seconds": wall,
             "backend": sess.backend,
             "device": str(sess.device),
@@ -326,11 +327,12 @@ def run_chaos(schedule: ChaosSchedule, *,
             shutil.rmtree(tmp, ignore_errors=True)
 
 
-# the counts every rank's report must agree on (probes are a rank's own:
-# a rank whose step raised did not probe that batch)
+# the counts every rank's report must agree on (batches and probes are a
+# rank's own: a rank whose step raised consumed no metrics and did not
+# probe that batch)
 _REPORT_COUNTS = ("restarts", "rollbacks", "health_failures", "timeouts",
-                  "batches_skipped", "ckpt_quarantined", "batches", "votes",
-                  "batches_seen")
+                  "batches_skipped", "ckpt_quarantined", "batches_trained",
+                  "votes", "batches_seen")
 
 
 def _merged(every) -> Dict:

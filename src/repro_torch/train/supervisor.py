@@ -120,12 +120,15 @@ class SupervisorReport:
     ``restarts`` when a restored checkpoint itself fails the health probe
     and the fallback walks further back. ``recovery_seconds`` is total
     wall time inside recovery (close stream, restore, reopen).
+    ``batches`` counts the metrics consumed, replays included (the
+    reference's field); ``batches_trained`` counts the batches trained,
+    replays included, also one whose step raised after its update.
     ``probes`` / ``probe_seconds`` count the health probes and the host
     time they took, the device sync included. Under a mesh every count
-    but ``probes`` is equal on every rank (a rank whose step raised did
-    not probe that batch); ``votes`` / ``vote_seconds`` count the rank's
-    votes and the host time inside them, waiting for the slowest rank
-    included.
+    but ``batches`` and ``probes`` is equal on every rank (a rank whose
+    step raised consumed no metrics and did not probe that batch);
+    ``votes`` / ``vote_seconds`` count the rank's votes and the host time
+    inside them, waiting for the slowest rank included.
     """
     restarts: int = 0
     rollbacks: int = 0
@@ -134,7 +137,8 @@ class SupervisorReport:
     batches_skipped: int = 0
     ckpt_quarantined: int = 0    # restored-but-unhealthy checkpoints
     recovery_seconds: float = 0.0
-    batches: int = 0             # batches trained, replays included
+    batches: int = 0             # metrics consumed, replays included
+    batches_trained: int = 0     # batches trained, replays included
     probes: int = 0
     probe_seconds: float = 0.0
     votes: int = 0
@@ -323,10 +327,12 @@ class TrainSupervisor:
                 metrics = next(self._it, None)
         finally:
             # trained, whether or not the step raised after its update
-            self.report.batches += self.session.state.batches_seen - before
+            self.report.batches_trained += (self.session.state.batches_seen
+                                            - before)
         if metrics is None:
             self._finished = True
             return
+        self.report.batches += 1
         if self.health_every:
             self._since_probe += 1
             if self._since_probe >= self.health_every:

@@ -7,7 +7,9 @@ prefetch worker's import path (and the CLI module, which such a worker
 imports as its main module, and the mesh launcher it imports for more
 than one rank) leaves ``torch`` unloaded too, and so does the serving CLI
 module, which its ranks import as their main module, and the chaos
-tool's top level, which its workers import as theirs."""
+tool's top level, which its workers import as theirs. The LM substrate
+(configs, models, elastic, compression) loads neither jax nor the
+reference, and its configs load no torch."""
 import ast
 import os
 import pathlib
@@ -58,6 +60,10 @@ def test_import_leaves_jax_and_reference_unloaded():
             ("repro_torch.frontends", "repro_torch.core."))))
         print("SERVE", sorted(m for m in mods if m.startswith(
             ("repro_torch.serve", "repro_torch.launch.serve"))))
+        print("LM", sorted(m for m in mods if m.startswith(
+            ("repro_torch.models", "repro_torch.configs.",
+             "repro_torch.distributed.elastic",
+             "repro_torch.distributed.compression", "repro_torch.tree"))))
         print("BAD", bad)
     """.format(repo=REPO, load_tool=LOAD_TOOL.format(tool=str(TOOL)).strip())
     out = run_subprocess(code, timeout=300)
@@ -81,6 +87,52 @@ def test_import_leaves_jax_and_reference_unloaded():
             "'repro_torch.serve.chaos', 'repro_torch.serve.index', "
             "'repro_torch.serve.query', 'repro_torch.serve.server', "
             "'repro_torch.serve.snapshot']") in out.stdout, out.stdout
+    lm = out.stdout.split("LM ")[1].splitlines()[0]
+    for mod in LM_MODULES:
+        assert f"'repro_torch.{mod}'" in lm, out.stdout
+
+
+LM_PRESETS = ("mamba2_1p3b", "moonshot_v1_16b_a3b", "arctic_480b",
+              "starcoder2_3b", "deepseek_67b", "phi3_medium_14b", "qwen3_8b",
+              "musicgen_large", "jamba_1p5_large_398b", "internvl2_76b")
+LM_MODULES = (("models", "models.layers", "models.lm", "models.moe",
+               "models.ssm", "configs.base", "distributed.elastic",
+               "distributed.compression", "tree")
+              + tuple(f"configs.{p}" for p in LM_PRESETS))
+
+
+def test_lm_substrate_leaves_jax_and_reference_unloaded():
+    """The LM substrate alone (configs and every preset, the models, the
+    elastic and compression helpers, ``convert``), used on the CPU, loads
+    neither jax nor the reference; the configs alone load no torch
+    either."""
+    code = """
+        import sys
+        import repro_torch.configs as configs
+        configs.list_archs()
+        print("CONFIGS", sorted(n for n in sys.modules
+                                if n.split(".")[0] in ("torch", "jax",
+                                                       "repro")))
+        import importlib
+        for mod in {mods!r}:
+            importlib.import_module("repro_torch." + mod)
+        from repro_torch.convert import lm_params_from_reference
+        from repro_torch.models import lm
+        from repro_torch.distributed import compression, elastic
+        cfg = configs.get_smoke("jamba-1.5-large-398b")
+        p = lm.init_params(cfg, device="cpu")
+        import torch
+        lm.forward(cfg, p, torch.zeros((1, 4), dtype=torch.long))
+        compression.compress_tree(p["embed"], compression.ef_init(p["embed"]))
+        elastic.plan_mesh(64, 8)
+        print("BAD", sorted(n for n in sys.modules
+                            if n.split(".")[0] in ("jax", "repro",
+                                                   "ml_dtypes")))
+    """.format(mods=LM_MODULES)
+    out = run_subprocess(code, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "CONFIGS []" in out.stdout, out.stdout
+    assert "BAD []" in out.stdout, out.stdout
 
 
 def test_worker_import_path_is_torch_free():

@@ -248,6 +248,32 @@ def test_process_pool_that_cannot_start_raises():
         next(pipe.batches(pad_len=32, epoch=0))
 
 
+def test_pool_parts_fail_loudly_without_the_pools_internals():
+    """A heal tears a process pool down through two private parts of
+    ``ProcessPoolExecutor`` (its worker map and the parent's end of its
+    result pipe): a thread pool has none, a shut-down pool none left, and
+    a pool that lacks them raises rather than heal without killing its
+    workers."""
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as ex:
+        assert prefetch_mod._pool_parts(ex) == ({}, None)
+    ex = ProcessPoolExecutor(1)
+    procs, writer = prefetch_mod._pool_parts(ex)
+    assert procs == {} and not writer.closed
+    ex.shutdown(wait=True)
+    assert prefetch_mod._pool_parts(ex) == ({}, None)
+    ex = ProcessPoolExecutor(1)
+    try:
+        real = ex._result_queue
+        del ex._result_queue
+        with pytest.raises(RuntimeError, match="lacks what a pool heal"):
+            prefetch_mod._pool_parts(ex)
+    finally:
+        ex._result_queue = real
+        ex.shutdown(wait=True)
+
+
 def test_make_pipeline_selects_by_config():
     corpus = _corpus()
     assert type(make_pipeline(corpus, smoke())) is BatchingPipeline

@@ -220,6 +220,49 @@ def test_poison_skip_equals_never_training_that_batch(workload, tmp_path):
     _near(sess.state, _params(ref.state))
 
 
+def test_supervisor_report_equals_the_reference(workload, tmp_path):
+    """One fault schedule (step failures raised after batches 3 and 7
+    trained, the newest checkpoint truncated after batch 4, NaN in
+    ``w_in`` after batch 6) through the reference's ``TrainSupervisor``
+    and the port's on one rank, from the same tables and batches: the
+    two reports are equal field by field on the reference's fields, with
+    ``batches`` counting the metrics consumed, replays included, in both.
+    ``recovery_seconds`` is a wall time: positive on both, not compared.
+    The port's ``batches_trained`` also counts the two batches whose step
+    raised after its update."""
+    from repro.train import chaos as ref_chaos
+    from repro_torch.train.chaos import ChaosMonkey, ChaosSchedule
+
+    faults = dict(fail_steps=(3, 7), truncate_ckpt_at=(4,), nan_at=(6,),
+                  prefetch_workers=0, prefetch_mode="thread")
+    kw = dict(max_restarts=4, health_every=1, backoff_s=0.0)
+    rcfg = ref_smoke(**CFG_KW)
+    ref_dir = str(tmp_path / "ref")
+    ref_monkey = ref_chaos.ChaosMonkey(ref_chaos.ChaosSchedule(**faults),
+                                       ref_dir)
+    ref = RefSession(RefPipeline(_corpus(), rcfg), rcfg, backend="jnp",
+                     ckpt_dir=ref_dir, ckpt_every=2,
+                     on_batch=ref_monkey.on_batch)
+    ref.train_resilient(**kw)
+    monkey = ChaosMonkey(ChaosSchedule(**faults), str(tmp_path / "ckpt"))
+    sess = _session(workload, tmp_path, on_batch=monkey.on_batch)
+    sess.train_resilient(**kw)
+    assert len(monkey.fired) == len(ref_monkey.fired) == 4
+    want, got = ref.last_report, sess.last_report
+    names = [f.name for f in dataclasses.fields(want)]
+    assert "batches" in names and "recovery_seconds" in names
+    for name in names:
+        if name == "recovery_seconds":
+            assert getattr(got, name) > 0 and getattr(want, name) > 0
+        else:
+            assert getattr(got, name) == getattr(want, name), name
+    assert (got.restarts, got.health_failures) == (3, 1)
+    assert got.batches_trained == got.batches + 2
+    assert sess.state.batches_seen == ref.state.batches_seen == workload.n
+    assert table_digest(sess.state) == workload.digest
+    _near(sess.state, workload.ref_final)
+
+
 def test_skip_poison_requires_unit_health_probe(workload, tmp_path):
     sess = _session(workload, tmp_path)
     with pytest.raises(ValueError, match="health_every=1"):

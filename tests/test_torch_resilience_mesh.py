@@ -140,7 +140,7 @@ PORT = COMMON + textwrap.dedent('''
     def counts(report):
         return {k: getattr(report, k) for k in (
             "restarts", "rollbacks", "health_failures", "timeouts",
-            "batches_skipped", "ckpt_quarantined", "batches")}
+            "batches_skipped", "ckpt_quarantined", "batches_trained")}
 
 
     def all_ranks(mesh, value):
@@ -382,7 +382,7 @@ CI_FAULTS = [["fail", 3], ["fail", 5], ["kill", 2], ["nan", 6],
 def _equal_reports(r):
     assert r["reports_equal"] == 1, [p["restarts"] for p in r["per_rank"]]
     keys = ("restarts", "rollbacks", "health_failures", "batches_skipped",
-            "ckpt_quarantined", "batches", "votes")
+            "ckpt_quarantined", "batches_trained", "votes")
     assert len({tuple(p[k] for k in keys) for p in r["per_rank"]}) == 1
 
 
@@ -400,7 +400,7 @@ def test_two_ranks_ci_schedule_recovers_bit_exact(mesh_runs):
     assert (r["restarts"], r["rollbacks"], r["health_failures"]) == (3, 3, 1)
     assert r["ckpt_quarantined"] == 1 and r["workers_killed"] == 1
     assert r["poisoned"] == [[], ["w_in"]]
-    assert r["votes"] >= r["batches"] + r["rollbacks"]
+    assert r["votes"] >= r["batches_trained"] + r["rollbacks"]
     assert all(p["vote_seconds"] > 0 for p in r["per_rank"])
 
 

@@ -1,0 +1,92 @@
+#!/usr/bin/env python3
+"""Run phase 14 of ``chip_smoke.py`` alone (the LM substrate on the first
+card, with the same gates and timings), then trace one forward of each
+arch with ``torch.profiler``.
+
+    python3 tools/torch_lm_phase.py [--seed 0]
+
+Prints the card's name and power limit, phase 14's lines, then one
+``[lm-trace]`` line an arch: the forward's host wall (host clock around
+the call and a device sync), the device time of its kernels (summed from
+the trace), their ratio (the device's busy share), the number of kernels
+launched, and the four ops with the most device time. Needs a CUDA
+device; exits non-zero without one, or if a gate fails.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def trace_forward(torch, np, name: str, seed: int) -> None:
+    """One traced forward of ``name``'s 2-layer cut at phase 14's shape."""
+    import chip_smoke
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from torch.profiler import ProfilerActivity, profile
+
+    full = get_arch(name)
+    cfg = dataclasses.replace(
+        full, n_layers=chip_smoke.LM_LAYERS * len(lm.block_pattern(full)))
+    params = lm.init_params(cfg, seed=seed, device="cuda")
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                      (1, chip_smoke.LM_S))).cuda()
+    with torch.no_grad():
+        lm.forward(cfg, params, x)                      # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            lm.forward(cfg, params, x)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    ops = sorted((e for e in prof.key_averages()
+                  if e.key.startswith("aten::")),
+                 key=lambda e: -e.self_device_time_total)[:4]
+    top = ",".join(f"{e.key}:{e.self_device_time_total / 1e3:.2f}ms"
+                   f"x{e.count}" for e in ops)
+    print(f"[lm-trace] arch={name} layers={cfg.n_layers} S={chip_smoke.LM_S}"
+          f" forward_wall_ms={wall_ms:.3f} device_ms={device_ms:.3f}"
+          f" device_busy={device_ms / wall_ms:.3f} kernels={len(kernels)}"
+          f" top={top}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("error: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+    import chip_smoke
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0], flush=True)
+    chip_smoke.phase_lm(torch, np, args)
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    for f in flags:
+        f.allow_tf32 = False            # as phase 14
+    for name in chip_smoke.LM_ARCHS:
+        trace_forward(torch, np, name, args.seed)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
