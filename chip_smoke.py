@@ -5,7 +5,7 @@ main path and times the kernels.
 
     python3 chip_smoke.py [--seed 0] [--sentences-per-batch 10000]
 
-About 13 min on an H100, most of it in the host batching of the
+About 14 min on an H100, most of it in the host batching of the
 training phases and in the plain versions of phases 5 and 11.
 
 Phases (each prints one line; any failure raises and the script exits
@@ -199,6 +199,34 @@ non-zero):
               tokens gives the card's logits within 1e-4 relative, and
               for the MoE the same routing indices; ``compress_tree`` of
               a 4M-element f32 tree gives the CPU's int8 bytes and scales.
+15. lm-train — LM training (``repro_torch.train.loop.Trainer``, AdamW,
+              f32 with TF32 off; no kernel). (a) ``python -m
+              repro_torch.launch.train lm --arch starcoder2-3b --smoke
+              --steps 12 --batch 2 --seq 16`` on the card, a process
+              started at the phase's start and read before (c): exit 0,
+              12 steps, finite losses (its first and last loss printed;
+              with random tokens whether the last is lower depends on the
+              draw). ``tests/test_train_loop.py``'s Trainer at smoke size:
+              12 steps on one fixed batch lose more than 0.5 nats (the
+              stream's first- and last-three means are printed), a
+              checkpointed 6-step run resumes at 6 and ends at 10,
+              failures at steps 5 and 9 recover to 12 with finite losses,
+              one without checkpoints ends at 6. (b) The first Trainer
+              step of the smoke configs of phase 14's three archs on the
+              card from the CPU Trainer's parameters: the loss within 1e-5
+              relative of the CPU's, every parameter within the sign-flip
+              bound 2·lr·(1 + wd·max|p|) (Adam's first update is about
+              lr·sign(g)), 99.9% of each leaf's entries within 1e-6 +
+              1e-5·|p|. (c) Phase 14's 2-layer cuts at published width:
+              two Trainers at B=2, S=512 with microbatches 1 and 2 give
+              one first loss within 1e-5 relative and, after that step,
+              parameters held as in (b) (the MoE at a capacity that drops
+              no token, as in phase 14); a Trainer at B=1, S=512 takes 4
+              steps,
+              steps 2-4 timed (CUDA events) with the AdamW update timed
+              apart, beside the bound (phase 14's forward+backward bound
+              plus 28 optimizer bytes a parameter at the memory rate),
+              tokens/s and peak memory; the losses finite.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the repository's ``src/`` beside it, the script fails before
@@ -3104,6 +3132,475 @@ def phase_lm(torch, np, args) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: LM training (repro_torch.train.loop) on the card
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_STEPS = 4          # Trainer steps a full-width cut; 2-4 timed
+LM_TRAIN_B = 1              # the timed steps' batch (phase 14's B and S)
+LM_MB_B = 2                 # the microbatch gate's batch (B=1 cannot split)
+LM_MB_REL = 1e-5            # microbatches=2 loss vs microbatches=1 (relative)
+LM_SMOKE_REL = 1e-5         # the card's first smoke step vs the CPU's: loss
+OPT_BYTES_PER_PARAM = 28    # AdamW: p r/w, g r, m r/w, v r/w, 4 bytes each
+LM_CLI = ["lm", "--arch", "starcoder2-3b", "--smoke", "--steps", "12",
+          "--batch", "2", "--seq", "16"]
+
+
+@contextlib.contextmanager
+def adamw_spy(torch):
+    """CUDA events around every ``adamw_update`` of the train step (the
+    spy wraps ``repro_torch.launch.steps.adamw_update``); yields the list
+    of (start, end) event pairs."""
+    from repro_torch.launch import steps
+
+    real, spans = steps.adamw_update, []
+
+    def spy(*a, **kw):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = real(*a, **kw)
+        e.record()
+        spans.append((s, e))
+        return out
+
+    steps.adamw_update = spy
+    try:
+        yield spans
+    finally:
+        steps.adamw_update = real
+
+
+def _timed_steps(torch, tr) -> list:
+    """Wrap a Trainer's step function in CUDA events; returns the list of
+    (start, end) pairs it fills, one a step."""
+    real, spans = tr.step_fn, []
+
+    def step(*a):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = real(*a)
+        e.record()
+        spans.append((s, e))
+        return out
+
+    tr.step_fn = step
+    return spans
+
+
+def _param_gap(got, want, lr_sum: float, wd: float) -> dict:
+    """The largest |got - want| over every parameter against the sign-flip
+    bound 2·Σlr_t·(1 + wd·max|p|) (Adam's update is about lr·sign(g), so
+    a gradient entry near float noise may flip), and the least share, over
+    the leaves, of a leaf's entries within 1e-6 + 1e-5·|p| with that
+    leaf's path (held at 0.999 leaf by leaf, so a small leaf left without
+    its update fails). Computed on ``want``'s device."""
+    from repro_torch.tree import tree_leaves, tree_map_with_path
+    paths = []
+    tree_map_with_path(lambda path, _: paths.append(path), want)
+    ours, theirs = tree_leaves(got), tree_leaves(want)
+    if len(ours) != len(theirs):
+        raise AssertionError(f"{len(ours)} leaves against {len(theirs)}")
+    pmax = max(float(w.abs().max()) for w in theirs)
+    worst, share, leaf = 0.0, 1.0, None
+    for path, g, w in zip(paths, ours, theirs):
+        w = w.float()
+        d = (g.to(w.device).float() - w).abs()
+        worst = max(worst, float(d.max()))
+        tight = int((d <= 1e-6 + 1e-5 * w.abs()).sum()) / d.numel()
+        if leaf is None or tight < share:
+            share, leaf = tight, path
+    return {"max_abs": worst, "bound": 2 * lr_sum * (1 + wd * pmax),
+            "tight_share": share, "tight_leaf": leaf}
+
+
+def lm_train_cli_start():
+    """Start ``python -m repro_torch.launch.train lm`` at smoke size on the
+    card (no ``--device``: the GPU); :func:`lm_train_cli_finish` reads it.
+    The phase runs its untimed parts while the process starts."""
+    env = dict(os.environ,
+               PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *LM_CLI],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def lm_train_cli_finish(t0: float, proc) -> dict:
+    """Wait for the CLI: exit 0, 12 steps, finite losses."""
+    import math
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError("lm CLI still running after 300 s")
+    if proc.returncode != 0:
+        raise AssertionError(f"lm CLI exit {proc.returncode}: {err[-2000:]}")
+    line = [ln for ln in out.splitlines() if ln.startswith("final step ")]
+    parts = line[-1].replace(";", "").split() if line else []
+    if len(parts) != 7 or parts[2] != "12":
+        raise AssertionError(f"lm CLI printed {out[-500:]!r}")
+    first, last = float(parts[4]), float(parts[6])
+    if not (math.isfinite(first) and math.isfinite(last)):
+        raise AssertionError(f"lm CLI losses {first} -> {last}")
+    _line("lm-train", cli=" ".join(LM_CLI), line=json.dumps(line[-1]),
+          loss_fell=last < first,
+          wall_s=f"{time.perf_counter() - t0:.1f}",
+          note="beside the loop and smoke parts")
+    return {"first": first, "last": last}
+
+
+def lm_train_loop(torch, tmp: str) -> dict:
+    """``tests/test_train_loop.py``'s Trainer (smoke starcoder2-3b, B=2,
+    S=16, lr 1e-3, warmup 2) on the card: 12 steps on one fixed batch
+    lose more than 0.5 nats (the property the stream's first-against-last
+    mean shows only for some draws: both are printed), a checkpointed run
+    of 6 steps resumes at 6 and ends at 10, failures at steps 5 and 9
+    recover from checkpoints to step 12 with finite losses, and a failure
+    without checkpoints still ends at 6."""
+    import math
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.train.loop import (LoopConfig, Trainer,
+                                        synthetic_lm_batches)
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.resilience import FailureInjector
+
+    cfg = get_smoke("starcoder2-3b")
+    t0 = time.perf_counter()
+
+    def trainer(ckpt_dir=None, steps=12, injector=None, **kw):
+        loop = LoopConfig(steps=steps, ckpt_dir=ckpt_dir, ckpt_every=4,
+                          log_every=100)
+        opt = AdamWConfig(lr=1e-3, total_steps=steps, warmup_steps=2)
+        return Trainer(cfg, opt, loop, batch=2, seq=16,
+                       failure_injector=injector, device="cuda", **kw)
+
+    fixed = next(synthetic_lm_batches(cfg, 2, 16, device="cuda"))
+    fixed_losses = trainer(batch_fn=lambda step: fixed).train()["losses"]
+    stream = trainer(steps=15).train()["losses"]
+    if not fixed_losses[0] - fixed_losses[-1] > 0.5:
+        raise AssertionError(f"lm-train: a fixed batch's loss went "
+                             f"{fixed_losses[0]} -> {fixed_losses[-1]}")
+    d1 = os.path.join(tmp, "resume")
+    trainer(d1, steps=6).train()
+    tr2 = trainer(d1, steps=10)
+    if tr2.start_step != 6 or tr2.train()["final_step"] != 10:
+        raise AssertionError("lm-train: the resumed Trainer did not run "
+                             "from step 6 to 10")
+    inj = FailureInjector([5, 9])
+    out = trainer(os.path.join(tmp, "faults"), injector=inj).train()
+    if out["final_step"] != 12 or inj.fail_steps or not all(
+            math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"lm-train: failures at 5 and 9 ended at "
+                             f"{out['final_step']} ({inj.fail_steps} left)")
+    plain = trainer(None, steps=6, injector=FailureInjector([3])).train()
+    if plain["final_step"] != 6:
+        raise AssertionError("lm-train: a failure without checkpoints did "
+                             "not finish")
+    _line("lm-train", loop="smoke starcoder2-3b B=2 S=16",
+          fixed_batch_loss=f"{fixed_losses[0]:.4f}->{fixed_losses[-1]:.4f}",
+          stream_mean3=f"{sum(stream[:3]) / 3:.4f}->"
+                       f"{sum(stream[-3:]) / 3:.4f}",
+          resume="6->10", faults="[5,9] -> 12",
+          replayed_steps=len(out["losses"]) - 12, no_ckpt_fault="[3] -> 6",
+          wall_s=f"{time.perf_counter() - t0:.1f}")
+    return {"fixed": fixed_losses, "stream": stream}
+
+
+def lm_train_smoke_vs_cpu(name: str) -> dict:
+    """The first Trainer step of ``name``'s smoke config (B=2, S=16, lr
+    1e-3) on the card from the CPU Trainer's initial parameters: the loss
+    within ``LM_SMOKE_REL`` relative of the CPU's step, every parameter
+    within the sign-flip bound, 99.9% of each leaf's entries within 1e-6 +
+    1e-5·|p|."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.train.loop import LoopConfig, Trainer
+    from repro_torch.train.optim import AdamWConfig, adamw_init, lr_schedule
+    from repro_torch.tree import tree_map
+
+    cfg = get_smoke(name)
+    opt = AdamWConfig(lr=1e-3, total_steps=4, warmup_steps=0)
+
+    def trainer(device):
+        return Trainer(cfg, opt, LoopConfig(steps=1, log_every=100),
+                       batch=2, seq=16, device=device)
+
+    cpu = trainer("cpu")
+    card = trainer("cuda")
+    card.params = tree_map(lambda t: t.clone().cuda(), cpu.params)
+    card.opt_state = adamw_init(card.params)
+    cpu_loss = cpu.train()["losses"][0]
+    card_loss = card.train()["losses"][0]
+    cpu_p, card_p = cpu.params, card.params
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    gap = _param_gap(card_p, cpu_p, float(lr_schedule(opt, 1)),
+                     opt.weight_decay)
+    if rel > LM_SMOKE_REL or gap["max_abs"] > gap["bound"] or \
+            gap["tight_share"] < 0.999:
+        raise AssertionError(f"lm-train {name} smoke: the card's first step "
+                             f"differs from the CPU's: loss {rel:.3e} "
+                             f"relative, {gap}")
+    return {"loss_rel": rel, **gap}
+
+
+def lm_train_arch(torch, name: str) -> dict:
+    """One architecture's 2-layer cut at published width (phase 14's): the
+    microbatch gate at B=``LM_MB_B`` (two Trainers from the same seeded
+    parameters, microbatches 1 and 2, one step each: the loss, and the
+    updated parameters held as :func:`lm_train_smoke_vs_cpu` holds them,
+    so the f32 accumulation, the division by m and the update that
+    follows are checked; the MoE at a capacity
+    that drops no token, as phase 14's decode gate: with drops a token's
+    output depends on how many tokens share its dispatch, so splitting the
+    batch changes which tokens drop), then a Trainer at
+    B=1, S=``LM_S`` for ``LM_TRAIN_STEPS`` steps with steps 2-4 timed
+    (CUDA events) and the AdamW update timed apart, beside the bound."""
+    import math
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.train.loop import LoopConfig, Trainer
+    from repro_torch.train.optim import AdamWConfig, lr_schedule
+
+    full_cfg = get_arch(name)
+    cfg = dataclasses.replace(
+        full_cfg, n_layers=LM_LAYERS * len(lm.block_pattern(full_cfg)))
+    opt = AdamWConfig(lr=1e-4, total_steps=LM_TRAIN_STEPS, warmup_steps=1)
+    gate_cfg = cfg if cfg.moe is None else dataclasses.replace(
+        cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    mb_loss = {}
+    for mb in (1, 2):
+        torch.cuda.empty_cache()
+        tr = Trainer(gate_cfg, opt, LoopConfig(steps=1, microbatches=mb,
+                                          log_every=100),
+                     batch=LM_MB_B, seq=LM_S, device="cuda")
+        mb_loss[mb] = tr.train()["losses"][0]
+        if mb == 1:
+            one_p = tr.params      # the moments go with the Trainer
+        else:
+            mb_gap = _param_gap(tr.params, one_p,
+                                float(lr_schedule(opt, 1)), opt.weight_decay)
+        del tr
+    del one_p
+    mb_rel = abs(mb_loss[2] - mb_loss[1]) / abs(mb_loss[1])
+    if mb_rel > LM_MB_REL or mb_gap["max_abs"] > mb_gap["bound"] or \
+            mb_gap["tight_share"] < 0.999:
+        raise AssertionError(f"lm-train {name}: microbatches=2 against 1: "
+                             f"loss {mb_loss[2]} vs {mb_loss[1]} "
+                             f"({mb_rel:.2e}), parameters {mb_gap}")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, opt, LoopConfig(steps=LM_TRAIN_STEPS, log_every=100),
+                 batch=LM_TRAIN_B, seq=LM_S, device="cuda")
+    spans = _timed_steps(torch, tr)
+    t0 = time.perf_counter()
+    with adamw_spy(torch) as opt_spans:
+        losses = tr.train()["losses"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if len(losses) != LM_TRAIN_STEPS or not all(math.isfinite(x)
+                                                for x in losses):
+        raise AssertionError(f"lm-train {name}: losses {losses}")
+    step_ms = [s.elapsed_time(e) for s, e in spans[1:]]
+    opt_ms = [s.elapsed_time(e) for s, e in opt_spans[1:]]
+    n_params = cfg.param_count()
+    mm = cfg.active_param_count() - (
+        0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model)
+    fwd_bwd_bound = 3 * 2 * mm * LM_TRAIN_B * LM_S / F32_FLOPS_PER_S * 1e3
+    opt_bound = OPT_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S * 1e3
+    out = {"params": n_params, "step_ms": sum(step_ms) / len(step_ms),
+           "opt_ms": sum(opt_ms) / len(opt_ms),
+           "bound_ms": fwd_bwd_bound + opt_bound, "opt_bound_ms": opt_bound,
+           "peak_gib": peak, "losses": losses, "mb_rel": mb_rel,
+           "mb_gap": mb_gap}
+    _line("lm-train", arch=name, layers=cfg.n_layers, params=n_params,
+          B=LM_TRAIN_B, S=LM_S, steps=LM_TRAIN_STEPS,
+          step_ms=f"{out['step_ms']:.3f}",
+          step_ms_each=",".join(f"{x:.3f}" for x in step_ms),
+          bound_ms=f"{out['bound_ms']:.3f}",
+          fwd_bwd_bound_ms=f"{fwd_bwd_bound:.3f}",
+          adamw_ms=f"{out['opt_ms']:.3f}",
+          adamw_bound_ms=f"{opt_bound:.3f}",
+          tok_per_s=f"{LM_TRAIN_B * LM_S / out['step_ms'] * 1e3:.0f}",
+          peak_gib=f"{peak:.2f}", wall_s=f"{wall:.2f}",
+          losses=",".join(f"{x:.4f}" for x in losses),
+          mb2_vs_mb1_rel=f"{mb_rel:.2e}",
+          mb2_vs_mb1_param_max_abs=f"{mb_gap['max_abs']:.3e}",
+          mb2_vs_mb1_bound=f"{mb_gap['bound']:.3e}",
+          mb2_vs_mb1_tight_share=f"{mb_gap['tight_share']:.6f}",
+          mb2_vs_mb1_tight_leaf=mb_gap["tight_leaf"], mb_B=LM_MB_B,
+          note="2-layer cut at published width, random weights")
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_train(torch) -> dict:
+    """Phase 15 (see the module docstring); TF32 off inside, the flags put
+    back after."""
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    t0 = time.perf_counter()
+    cli = lm_train_cli_start()
+    try:
+        out = {}
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
+            out["loop"] = lm_train_loop(torch, tmp)
+        out["smoke"] = {}
+        for name in LM_ARCHS:
+            t1 = time.perf_counter()
+            g = out["smoke"][name] = lm_train_smoke_vs_cpu(name)
+            _line("lm-train", smoke=name, B=2, S=16,
+                  card_vs_cpu_loss_rel=f"{g['loss_rel']:.2e}",
+                  param_max_abs=f"{g['max_abs']:.3e}",
+                  sign_flip_bound=f"{g['bound']:.3e}",
+                  tight_share=f"{g['tight_share']:.6f}",
+                  tight_leaf=g["tight_leaf"],
+                  wall_s=f"{time.perf_counter() - t1:.1f}")
+        # the timed steps run alone, after the CLI's process has ended
+        out["cli"] = lm_train_cli_finish(*cli)
+        for name in LM_ARCHS:
+            out[name] = lm_train_arch(torch, name)
+    finally:
+        if cli[1].poll() is None:
+            cli[1].kill()
+            cli[1].communicate()
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+    _line("lm-train", phase_seconds=f"{time.perf_counter() - t0:.1f}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the LM mesh path (tools/torch_lm_phase.py --mesh): Trainer(mesh=...) and a
+# decode cell on a (data=2, model=2) DeviceMesh of 4 ranks
+# ---------------------------------------------------------------------------
+
+LM_MESH_OPT = dict(lr=1e-3, total_steps=3, warmup_steps=1)
+
+
+def lm_mesh_rank(mesh) -> list:
+    """One rank of the LM mesh check (4 ranks, a card each under NCCL):
+    the mesh ``Trainer`` (smoke starcoder2-3b, global batch 4, seq 32, 3
+    steps) against a one-rank ``Trainer`` on this rank's card, the local
+    shards' shapes against their specs, and a decode cell of ``build_cell``
+    (qwen3 smoke with 4 heads, 2 KV heads, batch 8, cache 64) against one
+    process's serve step. Returns every rank's report (on rank 0)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import SHAPES, InputShape
+    from repro_torch.distributed.sharding import Rules, param_shardings
+    from repro_torch.launch.steps import build_cell, gather, make_serve_step
+    from repro_torch.models import lm
+    from repro_torch.train.loop import LoopConfig, Trainer
+    from repro_torch.train.optim import AdamWConfig, lr_schedule
+    from repro_torch.tree import tree_leaves
+
+    dev = mesh.device
+    dm = init_device_mesh(dev.type, (2, 2), mesh_dim_names=("data", "model"))
+    sizes = {"data": 2, "model": 2}
+    opt = AdamWConfig(**LM_MESH_OPT)
+    cfg = get_smoke("starcoder2-3b")
+
+    def trainer(m):
+        return Trainer(cfg, opt, LoopConfig(steps=3, log_every=100), mesh=m,
+                       batch=4, seq=32, device=dev)
+
+    one = trainer(None)
+    one_out = one.train()
+    tr = trainer(dm)
+    t0 = time.perf_counter()
+    out = tr.train()
+    wall = time.perf_counter() - t0
+    gap = _param_gap(gather(tr.params), one.params,
+                     sum(float(lr_schedule(opt, t)) for t in (1, 2, 3)),
+                     opt.weight_decay)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(out["losses"], one_out["losses"]))
+
+    def shards_ok(tree, shardings):
+        for x, sh in zip(tree_leaves(tree), tree_leaves(shardings)):
+            want = []
+            for dim, axes in zip(x.shape, sh.spec):
+                n = 1
+                for a in (() if axes is None else
+                          (axes,) if isinstance(axes, str) else axes):
+                    n *= sizes[a]
+                want.append(dim // n)
+            if tuple(x.to_local().shape) != tuple(want) or \
+                    tuple(x.placements) != sh.placements:
+                return False
+        return True
+
+    rules = Rules(dm)
+    shards = (shards_ok(tr.params, param_shardings(tr.params, rules))
+              and shards_ok(tr.opt_state.m, param_shardings(
+                  tr.params, rules, role="opt")))
+
+    dcfg = dataclasses.replace(get_smoke("qwen3-8b"), n_heads=4,
+                               n_kv_heads=2)
+    SHAPES["tiny_decode"] = InputShape("tiny_decode", 64, 8, "decode")
+    cell, _, _ = build_cell(dcfg, "tiny_decode", dm,
+                            param_dtype=torch.float32)
+    params = lm.init_params(dcfg, seed=2, device=dev)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, dcfg.vocab, (8, 1))
+                            .astype(np.int32)).to(dev)
+
+    def batch():
+        return {"tokens": toks, "cache": lm.zero_cache(dcfg, 8, 64,
+                                                       device=dev),
+                "cache_len": torch.tensor(5, dtype=torch.int32, device=dev)}
+
+    want = make_serve_step(dcfg)(params, batch())["logits"]
+    got = gather(cell(params, batch())["logits"])
+    decode_rel = float((got - want).abs().max() / want.abs().max())
+    mine = {"rank": dist.get_rank(), "device": str(dev),
+            "backend": str(dist.get_backend()),
+            "loss_rel": loss_rel, "losses": out["losses"], **gap,
+            "shards": shards, "decode_rel": decode_rel,
+            "decode_bitwise": bool(torch.equal(got, want)),
+            "wall_s": wall, "step": int(tr.opt_state.step)}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every
+
+
+def lm_mesh_check(reports: list) -> None:
+    """Gates on every rank's report of :func:`lm_mesh_rank`: losses within
+    1e-5 relative of the one-rank Trainer's, parameters within the
+    sign-flip bound with 99.9% of each leaf's entries within 1e-6 +
+    1e-5·|p|, shards
+    of their specs' shapes, 3 steps, decode logits within 1e-5 relative."""
+    for r in reports:
+        _line("lm-mesh", rank=r["rank"], device=r["device"],
+              backend=r["backend"], loss_rel=f"{r['loss_rel']:.2e}",
+              param_max_abs=f"{r['max_abs']:.3e}",
+              sign_flip_bound=f"{r['bound']:.3e}",
+              tight_share=f"{r['tight_share']:.6f}",
+              tight_leaf=r["tight_leaf"], shards=r["shards"],
+              decode_rel=f"{r['decode_rel']:.2e}",
+              decode_bitwise=r["decode_bitwise"],
+              train_wall_s=f"{r['wall_s']:.2f}")
+        if not (r["loss_rel"] <= 1e-5 and r["max_abs"] <= r["bound"]
+                and r["tight_share"] >= 0.999 and r["shards"]
+                and r["step"] == 3 and r["decode_rel"] <= 1e-5):
+            raise AssertionError(f"lm-mesh rank {r['rank']}: {r}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3240,6 +3737,11 @@ def main(argv=None) -> int:
     # 14. the LM substrate at published widths (2 layers): forward, loss
     # and backward, prefill and decode, against the CPU; int8 compression
     phase_lm(torch, np, args)
+
+    # 15. LM training: the lm CLI and the Trainer's loop properties at
+    # smoke size, the card's step against the CPU's, and four Trainer steps
+    # of each full-width cut (AdamW timed apart)
+    phase_lm_train(torch)
     mixed_launches = {"cuda": {QUALITY_MIXED: quality["mixed"]["launches"]}}
     for (tables, tile), m in mixed.items():
         mixed_launches.setdefault(m["kernel"], {})[tables] = m["launches"]

@@ -1,5 +1,5 @@
 """Start the port from the reference's tables (and the LM substrate from
-the reference's parameter tree).
+the reference's parameter tree and optimizer state).
 
 The reference draws its init with ``jax.random`` and the port with a
 ``torch.Generator``: the same seed gives different numbers. Handing the
@@ -121,3 +121,27 @@ def lm_params_from_reference(params: Mapping, device=None) -> dict:
             f"{sorted(extra)}")
     device = resolve_device(device)
     return tree_map(lambda a: _tensor(np.asarray(a), device), dict(params))
+
+
+def adamw_state_from_reference(state, device=None):
+    """The reference's ``AdamWState`` (``step``, ``m``, ``v``; jax or
+    numpy leaves) as the port's ``repro_torch.train.optim.AdamWState`` on
+    ``device`` (the GPU unless the caller asks for the CPU): the step as a
+    0-d int32 tensor, the moments as trees of the same keys and bits.
+    With ``lm_params_from_reference`` a parity run starts both packages
+    from the same parameters and optimizer state."""
+    from repro_torch.train.optim import AdamWState
+
+    step, m, v = state
+    device = resolve_device(device)
+    step = np.asarray(step)
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"expected a scalar int32 step, got "
+                         f"{step.dtype} {step.shape}")
+
+    def moments(tree):
+        return tree_map(lambda a: _tensor(np.asarray(a), device),
+                        tree if isinstance(tree, dict) else dict(tree))
+
+    return AdamWState(step=_tensor(step, device), m=moments(m),
+                      v=moments(v))

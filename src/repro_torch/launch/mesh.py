@@ -16,8 +16,10 @@ The backend follows one rule (:func:`plan_ranks`): ``nccl`` when the
 ranks run on CUDA and each can have a card of its own (N ≤
 ``torch.cuda.device_count()``, rank r on ``cuda:r``); otherwise ``gloo``,
 on the CPU, or with every rank on the same card when ranks share one
-(NCCL refuses two ranks on one device). The TPU pod meshes of
-``make_production_mesh`` belong to the LM substrate and are not ported.
+(NCCL refuses two ranks on one device). The LM substrate's meshes are
+``torch.distributed`` ``DeviceMesh``es with named dims instead:
+:func:`make_production_mesh` gives the reference's 256- and 512-device
+pod shapes over the default group.
 
 Importing this module starts nothing; torch is imported by the functions
 that need it, so a CLI that imports it keeps a light top level for the
@@ -109,6 +111,34 @@ def make_host_mesh(device=None, timeout_s: Optional[float] = None
         control = dist.new_group(backend=backend, timeout=timeout / 2)
     return DataMesh(rank=rank, size=size, device=resolve_device(device),
                     backend=backend, control_group=control)
+
+
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type="cuda"):
+    """Single pod: (data=16, model=16) = 256 ranks. Multi-pod: (pod=2,
+    data=16, model=16) = 512 ranks. A ``DeviceMesh`` with those dim names
+    over the initialized default process group, which must have that many
+    ranks (``device_type`` is the GPU unless the caller asks for the
+    CPU)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = PRODUCTION_SHAPES[bool(multi_pod)]
+    need = 1
+    for s in shape:
+        need *= s
+    if not dist.is_initialized():
+        raise RuntimeError(f"make_production_mesh needs an initialized "
+                           f"default process group of {need} ranks")
+    if dist.get_world_size() != need:
+        raise ValueError(
+            f"the production mesh {dict(zip(axes, shape))} needs {need} "
+            f"ranks; the default process group has "
+            f"{dist.get_world_size()}")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def plan_ranks(device, n: int) -> Tuple[str, List[Any]]:

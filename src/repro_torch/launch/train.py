@@ -1,10 +1,17 @@
-"""End-to-end launcher of the torch port: FULL-W2V embedding training.
+"""End-to-end launcher of the torch port: FULL-W2V embedding training and
+the LM substrate's training loop.
 
-The ``w2v`` subcommand of ``repro.launch.train``, with the same flags and
-defaults, on the GPU unless ``--device cpu`` is given:
+The ``w2v`` and ``lm`` subcommands of ``repro.launch.train``, with the
+same flags and defaults, on the GPU unless ``--device cpu`` is given:
 
   PYTHONPATH=src python -m repro_torch.launch.train w2v --vocab 65536 \\
       --sentences 30000 --sentences-per-batch 10000 --tile-windows 8
+  PYTHONPATH=src python -m repro_torch.launch.train lm \\
+      --arch starcoder2-3b --smoke --steps 12 --batch 2 --seq 16
+
+``lm`` runs ``repro_torch.train.loop.Trainer`` (AdamW with
+``warmup_steps = max(steps // 20, 1)``, optional microbatches and
+checkpoints) and prints ``final step N; loss a -> b``.
 
 ``--vocab-shard [N]`` and ``--hot-vocab-frac`` train with a
 vocab-sharded table; ``--tables`` takes any storage spec (``hot=bf16``,
@@ -171,6 +178,28 @@ def train_rank(mesh, args) -> int:
     return 0
 
 
+def run_lm(args) -> int:
+    """The ``lm`` subcommand: the reference's LM ``Trainer`` run, on the
+    port's ``Trainer`` on ``--device``."""
+    from repro_torch.configs.base import get_arch, get_smoke
+    from repro_torch.train.loop import LoopConfig, Trainer
+    from repro_torch.train.optim import AdamWConfig
+
+    cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
+    loop = LoopConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
+                      ckpt_every=args.ckpt_every,
+                      microbatches=args.microbatches)
+    opt = AdamWConfig(lr=args.lr, total_steps=args.steps,
+                      warmup_steps=max(args.steps // 20, 1))
+    trainer = Trainer(cfg, opt, loop, batch=args.batch, seq=args.seq,
+                      device=args.device)
+    out = trainer.train()
+    losses = out["losses"]
+    print(f"final step {out['final_step']}; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}", flush=True)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     from repro_torch import frontends
     from repro_torch.kernels import registry
@@ -236,6 +265,21 @@ def build_parser() -> argparse.ArgumentParser:
     w.add_argument("--health-every", type=int, default=0)
     w.add_argument("--reset-after", type=int, default=0)
     w.set_defaults(fn=run_w2v)
+
+    l = sub.add_parser("lm")
+    l.add_argument("--device", default=None,
+                   help="cuda, cuda:N or cpu (default: the GPU; fails "
+                        "without one)")
+    l.add_argument("--arch", required=True)
+    l.add_argument("--smoke", action="store_true")
+    l.add_argument("--steps", type=int, default=100)
+    l.add_argument("--batch", type=int, default=8)
+    l.add_argument("--seq", type=int, default=128)
+    l.add_argument("--lr", type=float, default=3e-4)
+    l.add_argument("--microbatches", type=int, default=1)
+    l.add_argument("--ckpt-dir", default=None)
+    l.add_argument("--ckpt-every", type=int, default=50)
+    l.set_defaults(fn=run_lm)
     return ap
 
 

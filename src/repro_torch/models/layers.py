@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain
 
 Params = Dict[str, torch.Tensor]
 Draw = Callable[[Tuple[int, ...], float, torch.dtype], torch.Tensor]
@@ -91,6 +92,9 @@ def _qkv(cfg: ArchConfig, p: Params, x: torch.Tensor,
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = constrain(q, "batch", "seq", "heads", None)
+    k = constrain(k, "batch", "seq", "kv_heads", None)
+    v = constrain(v, "batch", "seq", "kv_heads", None)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -126,8 +130,10 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sk = k.shape[1]
     nkv = k.shape[2]
     scale = hd ** -0.5
-    k = torch.repeat_interleave(k, nh // nkv, dim=2)
-    v = torch.repeat_interleave(v, nh // nkv, dim=2)
+    k = constrain(torch.repeat_interleave(k, nh // nkv, dim=2),
+                  "batch", "seq", "heads", None)
+    v = constrain(torch.repeat_interleave(v, nh // nkv, dim=2),
+                  "batch", "seq", "heads", None)
     qc = max(1, _ceil_div(sq, n_q_chunks))
     kc = max(1, _ceil_div(sk, n_kv_chunks))
 
@@ -166,7 +172,7 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             m = m_new
         out_chunks.append(acc / torch.clamp(l[..., None], min=1e-30))
     out = torch.cat(out_chunks, dim=1)
-    return out.to(q.dtype)
+    return constrain(out.to(q.dtype), "batch", "seq", "heads", None)
 
 
 def attention_block(cfg: ArchConfig, p: Params, x: torch.Tensor,

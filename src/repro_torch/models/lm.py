@@ -10,7 +10,9 @@ reference scans (``lax.scan``) the port loops in Python; ``scan_layers``
 True and False are the same loop. ``cfg.remat`` checkpoints each block
 (``torch.utils.checkpoint``, non-reentrant) while grads are on;
 ``remat_policy="dots"`` saves the plain matmuls' outputs (the reference's
-``dots_with_no_batch_dims_saveable``).
+``dots_with_no_batch_dims_saveable``). ``constrain`` marks the
+reference's activation placements (identity on plain tensors), and
+``cache_shardings`` places the decode cache by the sharding rules.
 
 ``[audio]``/``[vlm]`` archs prepend precomputed ``prefix_embeds`` (the
 modality-frontend stub) to the token embeddings.
@@ -26,6 +28,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.trainer import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
@@ -176,15 +179,22 @@ def _apply_layer(cfg: ArchConfig, kind: str, pos: int, p: Params,
         mix = attention_block(cfg, p["mixer"], x, positions)
     else:
         mix = ssm_mod.mamba_block(cfg, p["mixer"], x)
-    return _ffn(cfg, pos, p, h + mix)
+    return constrain(_ffn(cfg, pos, p, h + mix), "batch", "seq", "embed")
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding lookup against a replicated table (the parameter rules
+    keep ``embed`` replicated and shard its optimizer state)."""
+    return constrain(F.embedding(tokens, embed), "batch", "seq", "embed")
 
 
 def _embed(params: Params, tokens: torch.Tensor,
            prefix_embeds: Optional[torch.Tensor]):
     """Token embeddings with the prefix prepended, and their positions."""
-    h = F.embedding(tokens, params["embed"])
+    h = embed_lookup(params["embed"], tokens)
     if prefix_embeds is not None:
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+    h = constrain(h, "batch", "seq", "embed")
     b, s_total, _ = h.shape
     positions = torch.arange(s_total, device=h.device)[None].expand(
         b, s_total)
@@ -209,7 +219,7 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
 
     h, _ = _loop_blocks(cfg, body, h, params["blocks"])
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return h @ _unembed(params)
+    return constrain(h @ _unembed(params), "batch", "seq", "vocab")
 
 
 def lm_loss(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
@@ -222,7 +232,7 @@ def lm_loss(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     if prefix_embeds is not None:
         logits = logits[:, prefix_embeds.shape[1]:]
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
-    shifted = (logits - m).float()
+    shifted = constrain((logits - m).float(), "batch", "seq", "vocab")
     logz = torch.log(torch.sum(torch.exp(shifted), dim=-1))
     gold = torch.gather(shifted, -1, labels[..., None].long())[..., 0]
     return torch.mean(logz - gold)
@@ -265,6 +275,38 @@ def zero_cache(cfg: ArchConfig, batch: int, max_len: int,
     return init_cache(cfg, batch, max_len, dtype, resolve_device(device))
 
 
+def cache_shardings(cfg: ArchConfig, rules, batch: int, max_len: int):
+    """Shardings (``repro_torch.distributed.sharding.NamedSharding``) for
+    the decode cache.
+
+    Attention KV: batch over the data axes; the sequence dim additionally
+    shards over `model` when the KV heads can't (GQA kv < 16, most archs),
+    and over `data` when the batch itself is unshardable (long-context
+    batch=1 → sequence parallelism). Conv caches shard ``inner``, SSM
+    states ``ssm_heads``."""
+
+    def leaf(sd):
+        shape = tuple(sd.shape)
+        if sd.ndim == 5 and shape[2] == max_len:   # (nb,B,S,kv,hd) KV
+            nb_, b, s_len, kv, hd = shape
+            batch_ok = b % rules._axes_size(
+                rules._present(("pod", "data"))) == 0
+            kv_ok = kv % rules._axes_size(rules._present("model")) == 0
+            if batch_ok and kv_ok:
+                axes = ("stack", "batch", None, "kv_heads", None)
+            elif batch_ok:
+                axes = ("stack", "batch", "kv_seq_model", "kv_heads", None)
+            else:
+                axes = ("stack", None, "kv_seq", "kv_heads", None)
+            return rules.sharding(axes, shape)
+        if sd.ndim == 4:        # (nb, B, W, conv_ch) conv cache
+            return rules.sharding(("stack", "batch", None, "inner"), shape)
+        return rules.sharding(("stack", "batch", "ssm_heads", None, None),
+                              shape)
+
+    return tree_map(leaf, init_cache(cfg, batch, max_len))
+
+
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None,
             cache_dtype=torch.bfloat16):
@@ -291,7 +333,8 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
                     cfg, p["mixer"], x, return_cache=True)
                 out_cache.append({"conv": conv_tail.to(cache_dtype),
                                   "ssm": state})
-            hh = _ffn(cfg, pos, p, hh + mix)
+            hh = constrain(_ffn(cfg, pos, p, hh + mix),
+                           "batch", "seq", "embed")
         return hh, tuple(out_cache)
 
     h, cache = _loop_blocks(cfg, body, h, params["blocks"])
@@ -304,7 +347,8 @@ def decode_step(cfg: ArchConfig, params: Params, cache, cache_len,
     """One-token decode at position ``cache_len`` (an int). tokens (B, 1)
     -> (logits (B, V), new cache)."""
     pat = block_pattern(cfg)
-    h = F.embedding(tokens, params["embed"])             # (B, 1, d)
+    h = constrain(embed_lookup(params["embed"], tokens),  # (B, 1, d)
+                  "batch", "seq", "embed")
     cache_len = int(cache_len)
 
     def body(hh, xs):

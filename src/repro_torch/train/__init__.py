@@ -1,3 +1,5 @@
-"""Training resilience of the torch port: checkpoints with exact resume
+"""Training of the torch port: checkpoints with exact resume
 (``checkpoint``), recovery primitives (``resilience``), the supervised
-loop (``supervisor``) and deterministic fault schedules (``chaos``)."""
+loop (``supervisor``), deterministic fault schedules (``chaos``), and the
+LM substrate's AdamW (``optim``) and training loop (``loop``). Each is
+imported by name, so that this package's import stays torch-free."""

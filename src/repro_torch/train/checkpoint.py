@@ -10,7 +10,9 @@ other:
         arrays.npz              (flattened leaves, keys a0, a1, ...)
 
 Leaves are flattened as the reference flattens its pytrees: dict keys in
-sorted order, list and tuple items by index, paths joined with ``/``
+sorted order, a NamedTuple's fields by name in field order (an
+``AdamWState`` gives ``opt/step``, ``opt/m/...``, ``opt/v/...``), list and
+tuple items by index, paths joined with ``/``
 (``{"cold_in", "cold_out", "hot_in", "hot_out"}`` gives ``a0..a3`` in that
 order). Leaves may be torch tensors (any device; copied to the host with a
 blocking ``.cpu()``, which orders the copy after the work already queued
@@ -51,6 +53,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.tree import tree_map_with_path
 
 log = logging.getLogger("repro_torch.checkpoint")
 
@@ -112,38 +116,21 @@ def _dtype_name(like) -> str:
     return str(np.dtype(dt))
 
 
-def _flatten_with_paths(tree: Any, prefix: Tuple[str, ...] = ()
-                        ) -> List[Tuple[str, Any]]:
-    """``(path, leaf)`` pairs in the reference's pytree order: dict keys
-    sorted, list/tuple items by index, ``None`` dropped (an empty
-    subtree)."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += _flatten_with_paths(tree[k], prefix + (str(k),))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = []
-        for i, v in enumerate(tree):
-            out += _flatten_with_paths(v, prefix + (str(i),))
-        return out
-    return [("/".join(prefix), tree)]
+def _flatten_with_paths(tree: Any) -> List[Tuple[str, Any]]:
+    """``(path, leaf)`` pairs in the reference's pytree order
+    (:func:`repro_torch.tree.tree_map_with_path`'s walk and names), ``None``
+    dropped (an empty subtree)."""
+    out: List[Tuple[str, Any]] = []
+    tree_map_with_path(
+        lambda path, leaf: out.append((path, leaf)) if leaf is not None
+        else None, tree)
+    return out
 
 
-def _unflatten(tree: Any, leaves: Dict[str, Any],
-               prefix: Tuple[str, ...] = ()) -> Any:
+def _unflatten(tree: Any, leaves: Dict[str, Any]) -> Any:
     """``tree``'s structure with each leaf replaced by ``leaves[path]``."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: _unflatten(v, leaves, prefix + (str(k),))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_unflatten(v, leaves, prefix + (str(i),))
-                          for i, v in enumerate(tree))
-    return leaves["/".join(prefix)]
+    return tree_map_with_path(
+        lambda path, leaf: None if leaf is None else leaves[path], tree)
 
 
 def _host_array(leaf) -> Tuple[np.ndarray, str]:
@@ -155,7 +142,8 @@ def _host_array(leaf) -> Tuple[np.ndarray, str]:
         arr = t.numpy()
     else:
         arr = np.asarray(leaf)
-    return np.ascontiguousarray(arr), str(arr.dtype)
+    # np.ascontiguousarray would lift a 0-d leaf (an optimizer step) to 1-d
+    return np.require(arr, requirements="C"), str(arr.dtype)
 
 
 def _fsync_path(path: str) -> None:

@@ -8,8 +8,9 @@ imports as its main module, and the mesh launcher it imports for more
 than one rank) leaves ``torch`` unloaded too, and so does the serving CLI
 module, which its ranks import as their main module, and the chaos
 tool's top level, which its workers import as theirs. The LM substrate
-(configs, models, elastic, compression) loads neither jax nor the
-reference, and its configs load no torch."""
+(configs, models, elastic, compression, the sharding rules, AdamW, the
+steps and the training loop) loads neither jax nor the reference, also
+when a ``Trainer`` takes a step, and its configs load no torch."""
 import ast
 import os
 import pathlib
@@ -63,7 +64,10 @@ def test_import_leaves_jax_and_reference_unloaded():
         print("LM", sorted(m for m in mods if m.startswith(
             ("repro_torch.models", "repro_torch.configs.",
              "repro_torch.distributed.elastic",
-             "repro_torch.distributed.compression", "repro_torch.tree"))))
+             "repro_torch.distributed.compression",
+             "repro_torch.distributed.sharding", "repro_torch.launch.steps",
+             "repro_torch.train.optim", "repro_torch.train.loop",
+             "repro_torch.tree"))))
         print("BAD", bad)
     """.format(repo=REPO, load_tool=LOAD_TOOL.format(tool=str(TOOL)).strip())
     out = run_subprocess(code, timeout=300)
@@ -97,7 +101,8 @@ LM_PRESETS = ("mamba2_1p3b", "moonshot_v1_16b_a3b", "arctic_480b",
               "musicgen_large", "jamba_1p5_large_398b", "internvl2_76b")
 LM_MODULES = (("models", "models.layers", "models.lm", "models.moe",
                "models.ssm", "configs.base", "distributed.elastic",
-               "distributed.compression", "tree")
+               "distributed.compression", "distributed.sharding",
+               "launch.steps", "train.optim", "train.loop", "tree")
               + tuple(f"configs.{p}" for p in LM_PRESETS))
 
 
@@ -125,6 +130,15 @@ def test_lm_substrate_leaves_jax_and_reference_unloaded():
         lm.forward(cfg, p, torch.zeros((1, 4), dtype=torch.long))
         compression.compress_tree(p["embed"], compression.ef_init(p["embed"]))
         elastic.plan_mesh(64, 8)
+        from repro_torch.convert import adamw_state_from_reference
+        from repro_torch.distributed.sharding import Rules, param_shardings
+        from repro_torch.launch.steps import build_cell
+        from repro_torch.train.loop import LoopConfig, Trainer
+        from repro_torch.train.optim import AdamWConfig
+        Trainer(cfg, AdamWConfig(total_steps=1), LoopConfig(steps=1),
+                batch=2, seq=4, device="cpu").train()
+        param_shardings(lm.abstract_params(cfg),
+                        Rules({{"data": 16, "model": 16}}))
         print("BAD", sorted(n for n in sys.modules
                             if n.split(".")[0] in ("jax", "repro",
                                                    "ml_dtypes")))

@@ -1,15 +1,23 @@
 #!/usr/bin/env python3
 """Run phase 14 of ``chip_smoke.py`` alone (the LM substrate on the first
 card, with the same gates and timings), then trace one forward of each
-arch with ``torch.profiler``.
+arch with ``torch.profiler``; optionally phase 15 (LM training) and the
+LM mesh path.
 
-    python3 tools/torch_lm_phase.py [--seed 0]
+    python3 tools/torch_lm_phase.py [--seed 0] [--train] [--no-trace]
+                                    [--no-lm] [--mesh 4]
 
 Prints the card's name and power limit, phase 14's lines, then one
 ``[lm-trace]`` line an arch: the forward's host wall (host clock around
 the call and a device sync), the device time of its kernels (summed from
 the trace), their ratio (the device's busy share), the number of kernels
-launched, and the four ops with the most device time. Needs a CUDA
+launched, and the four ops with the most device time. ``--train`` runs
+phase 15 after them (``[lm-train]`` lines), ``--no-lm`` and
+``--no-trace`` leave out phase 14 and the traces. ``--mesh 4`` runs the
+LM mesh path (``chip_smoke.lm_mesh_rank``: ``Trainer(mesh=...)`` and a
+decode cell on a ``(data=2, model=2)`` DeviceMesh against one process,
+``[lm-mesh]`` lines a rank) on 4 ranks: NCCL with a card each where the
+machine has 4 cards, else gloo ranks sharing the first. Needs a CUDA
 device; exits non-zero without one, or if a gate fails.
 """
 from __future__ import annotations
@@ -66,6 +74,14 @@ def trace_forward(torch, np, name: str, seed: int) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train", action="store_true",
+                    help="run phase 15 (LM training) too")
+    ap.add_argument("--no-lm", action="store_true",
+                    help="leave out phase 14")
+    ap.add_argument("--no-trace", action="store_true",
+                    help="leave out the traced forwards")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="run the LM mesh path on N (= 4) ranks")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -79,12 +95,25 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0], flush=True)
-    chip_smoke.phase_lm(torch, np, args)
+    if not args.no_lm:
+        chip_smoke.phase_lm(torch, np, args)
     flags = torch.backends.cuda.matmul, torch.backends.cudnn
     for f in flags:
-        f.allow_tf32 = False            # as phase 14
-    for name in chip_smoke.LM_ARCHS:
-        trace_forward(torch, np, name, args.seed)
+        f.allow_tf32 = False            # as phases 14 and 15
+    if not args.no_trace:
+        for name in chip_smoke.LM_ARCHS:
+            trace_forward(torch, np, name, args.seed)
+    if args.train:
+        chip_smoke.phase_lm_train(torch)
+    if args.mesh:
+        if args.mesh != 4:
+            ap.error("the LM mesh path is a (data=2, model=2) mesh: --mesh 4")
+        from repro_torch.launch.mesh import start_ranks
+        t0 = time.perf_counter()
+        chip_smoke.lm_mesh_check(start_ranks(chip_smoke.lm_mesh_rank, 4,
+                                             "cuda", timeout=600))
+        print(f"[lm-mesh] seconds={time.perf_counter() - t0:.1f}",
+              flush=True)
     return 0
 
 
