@@ -5,7 +5,7 @@ main path and times the kernels.
 
     python3 chip_smoke.py [--seed 0] [--sentences-per-batch 10000]
 
-About 14 min on an H100, most of it in the host batching of the
+About 14-17 min on an H100, most of it in the host batching of the
 training phases and in the plain versions of phases 5 and 11.
 
 Phases (each prints one line; any failure raises and the script exits
@@ -127,8 +127,8 @@ non-zero):
               on the first 256 walks of the first batch (atol 2e-5, rtol
               1e-4); the T=8 run again with 2 thread workers (same digest);
               a 2-rank gloo run, sharded exact T=8 (K4), twice (same
-              digest). doc2vec (2,048 documents of 24 sentences, S=1,000)
-              and subword (65,536 words, 2,000,000 n-gram rows, S=500) run
+              digest). doc2vec (2,048 documents of 24 sentences, S=250)
+              and subword (65,536 words, 2,000,000 n-gram rows, S=125) run
               one batch each at T=1 and T=8 on the plain versions
               (``torch``, ``torch_tiled``: no kernel consumes doc rows or
               bags), tables on the card, a rerun with the same digest. Last,
@@ -226,7 +226,44 @@ non-zero):
               steps 2-4 timed (CUDA events) with the AdamW update timed
               apart, beside the bound (phase 14's forward+backward bound
               plus 28 optimizer bytes a parameter at the memory rate),
-              tokens/s and peak memory; the losses finite.
+              tokens/s and peak memory; the losses finite; then one more
+              step, untimed, under ``repro_torch.launch.roofline``'s
+              count for phase 16.
+16. lm-ep   — (a) the MoE's expert parallelism at moonshot-v1-16b-a3b's
+              published width (d=2048, 64 experts top-6, ff=1408,
+              capacity factor 1.25, so tokens drop; B=1, S=512; f32, TF32
+              off) on 2 gloo ranks sharing the card as a (model=2) mesh,
+              32 experts a rank: the block's forward and the backward of
+              sum(out·w) through ``moe_block`` under the rules, against
+              the card's one-process local path with every expert (the
+              output within 3·2^-8 of the largest partial or output
+              entry: the bf16 roundings of the 2 partials and of their
+              sum; every gradient within 3·2^-8 of its largest entry: the
+              cotangent's bf16 rounding) and against the same ranks'
+              expert parallelism on the CPU (a gloo group over the same
+              ranks; at least 99.9% of the output's entries equal bit for
+              bit and all within 3 bf16 ulps of the CPU's (ulps of the
+              entry's largest rounded operand, a partial or the sum: each
+              of the 2 partials may round to its neighbour, and the sum's
+              rounding may add one more; plus 1e-5 of the largest
+              partial, the f32 partials' own difference where a partial
+              cancels to near 0), except on tokens the two hosts route otherwise (a
+              near tie of the k-th and (k+1)-th gates, under 1e-6 apart,
+              which their f32 logits order differently) or keep
+              otherwise with them, at most 4 tokens; every
+              gradient within 2^-8 of its largest entry); some token must
+              drop; ms per forward+backward per rank (CUDA events, 3
+              after a warm-up) and the sum's ms (host clock around the
+              gather of the partials): the ranks time-slice one card, so
+              no scaling shows. (b) Phase 15's counted step of each
+              2-layer cut: the counted FLOPs (``FlopCounterMode``:
+              matmul-class ops only) beside phase 14's analytic product
+              FLOPs, and their time at the f32 rate beside the measured
+              step. (c) ``python -m repro_torch.launch.dryrun`` on
+              qwen3-8b's ``train_4k`` and ``decode_32k`` on the single-pod
+              fake mesh (the host's CPU; processes started at the phase's
+              start): a ``status: "ok"`` record each with finite terms (a
+              model on H100 constants, not a measurement).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the repository's ``src/`` beside it, the script fails before
@@ -1766,13 +1803,14 @@ NODE2VEC_RUNS = ((1, False, "cuda_pipelined", "cuda_pipelined"),
 PARITY_WALKS = 256
 # doc2vec and subword run the plain versions: depth cut to one batch of
 # S sentences (fastText's default -bucket 2000000 n-gram rows, -minn 3,
-# -maxn 5)
+# -maxn 5); S cut to a quarter (from 1,000 and 500) when phase 16 took
+# the script past 900 s
 DOC2VEC = dict(docs=2048, sents_per_doc=24, clusters=64,
                words_per_cluster=1024)
-DOC2VEC_S = 1000
+DOC2VEC_S = 250
 SUBWORD = dict(vocab=65_536, clusters=64, sentences=20_000,
                buckets=2_000_000, minn=3, maxn=5)
-SUBWORD_S = 500
+SUBWORD_S = 125
 
 
 def _inv_clusters(np, pipe, corpus):
@@ -3419,7 +3457,14 @@ def lm_train_arch(torch, name: str) -> dict:
            "opt_ms": sum(opt_ms) / len(opt_ms),
            "bound_ms": fwd_bwd_bound + opt_bound, "opt_bound_ms": opt_bound,
            "peak_gib": peak, "losses": losses, "mb_rel": mb_rel,
-           "mb_gap": mb_gap}
+           "mb_gap": mb_gap, "product_flops": 3 * 2 * mm * LM_TRAIN_B * LM_S}
+    # one more step, untimed, under the roofline's count (phase 16 reads it)
+    from repro_torch.launch.roofline import counting
+    with counting() as count:
+        tr.step_fn(tr.params, tr.opt_state, tr.batch_fn(LM_TRAIN_STEPS))
+    torch.cuda.synchronize()
+    out["counted_flops"] = count.flops
+    out["counted_collectives"] = len(count.collectives)
     _line("lm-train", arch=name, layers=cfg.n_layers, params=n_params,
           B=LM_TRAIN_B, S=LM_S, steps=LM_TRAIN_STEPS,
           step_ms=f"{out['step_ms']:.3f}",
@@ -3477,6 +3522,362 @@ def phase_lm_train(torch) -> dict:
         for f, v in zip(flags, saved):
             f.allow_tf32 = v
     _line("lm-train", phase_seconds=f"{time.perf_counter() - t0:.1f}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the MoE's expert parallelism at published width, the roofline's
+# count of phase 15's steps, and the dry-run CLI
+# ---------------------------------------------------------------------------
+
+EP_ARCH = "moonshot-v1-16b-a3b"   # d=2048, 64 experts top-6, ff=1408
+EP_CF = 1.25                      # the published capacity factor: drops
+EP_S = 512                        # B=1 tokens through the block
+EP_RANKS = 2                      # model ranks sharing the card (gloo)
+EP_REPS = 3                       # timed forward+backward passes a rank
+EP_BITWISE = 0.999                # output entries equal to the CPU's bits
+EP_MOVED_TOKENS = 4               # tokens the CPU may route or keep otherwise
+EP_TIE_GAP = 1e-6                 # ... each flip a near tie of the gates
+EP_F32_REL = 1e-5                 # card vs CPU f32 partials, of the largest
+BF16_EPS = 2.0 ** -8              # a bf16 rounding's relative error bound
+DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "decode_32k"))
+EP_KEYS = ("x", "w_router", "we_gate", "we_up", "we_down")
+
+
+def ep_config():
+    """moonshot-v1-16b-a3b's published MoE block (its config's widths) at
+    the published capacity factor."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(EP_ARCH)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=EP_CF))
+
+
+def ep_draw(torch, cfg, seed: int) -> dict:
+    """The block's inputs on the host from a seeded CPU generator (every
+    rank draws the same): router, experts, the input (1, EP_S, d) and the
+    cotangent ``w`` of the loss sum(out·w)."""
+    g = torch.Generator().manual_seed(seed)
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+
+    def draw(shape, scale):
+        return torch.randn(shape, generator=g) * scale
+
+    return {"w_router": draw((d, e), d ** -0.5),
+            "we_gate": draw((e, d, ff), d ** -0.5),
+            "we_up": draw((e, d, ff), d ** -0.5),
+            "we_down": draw((e, ff, d), ff ** -0.5),
+            "x": draw((1, EP_S, d), 1.0), "w": draw((1, EP_S, d), 1.0)}
+
+
+def ep_pass(torch, cfg, inp: dict, device, mesh=None) -> dict:
+    """``moe_block``'s output and the gradients of sum(out·w) on
+    ``device``: under the rules of ``mesh`` (expert parallelism over its
+    ``model`` dim, ``inp`` holding this rank's experts), or without rules
+    (the local path, ``inp`` holding every expert)."""
+    from repro_torch.distributed.sharding import axis_rules
+    from repro_torch.models import moe
+
+    leaf = {k: inp[k].detach().to(device, copy=True).requires_grad_(True)
+            for k in EP_KEYS}
+    p = {k: v for k, v in leaf.items() if k != "x"}
+    with (axis_rules(mesh) if mesh is not None else contextlib.nullcontext()):
+        out = moe.moe_block(cfg, p, leaf["x"])
+    (out * inp["w"].to(device)).sum().backward()
+    res = {"out": out.detach()}
+    res.update({k: v.grad for k, v in leaf.items()})
+    return res
+
+
+def _bf16_ulp(torch, ref):
+    """One bf16 ulp at each entry of ``ref``: 2^(e-7) for |ref| in
+    [2^e, 2^(e+1))."""
+    mag = ref.float().abs().clamp_min(2.0 ** -126)
+    return torch.pow(2.0, torch.floor(torch.log2(mag)) - 7)
+
+
+def ep_rank(mesh, seed: int) -> list:
+    """Phase 16 (a) on one rank of a (model=N) mesh: the expert-parallel
+    block at published width on the card, then through the same code on
+    the CPU (a gloo group over the same ranks), and the card's one-process
+    local path with every expert. Returns every rank's report."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+    from repro_torch.models import moe
+
+    for f in (torch.backends.cuda.matmul, torch.backends.cudnn):
+        f.allow_tf32 = False
+    # the host's cores shared with the other ranks and the dry-run
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // 4))
+    dev = mesh.device
+    n = dist.get_world_size()
+    cfg = ep_config()
+    card = init_device_mesh(dev.type, (n,), mesh_dim_names=("model",))
+    host = DeviceMesh.from_group(dist.new_group(backend="gloo"), "cpu",
+                                 mesh_dim_names=("model",))
+    r = card.get_local_rank("model")
+    inp = ep_draw(torch, cfg, seed)
+    e_loc = cfg.moe.num_experts // n
+    mine = {k: (v[r * e_loc:(r + 1) * e_loc].clone() if k.startswith("we_")
+                else v) for k, v in inp.items()}
+
+    sums, operands, routes = [], [], []
+    real_gather, real_route = moe._gather_list, moe._route
+
+    def route_spy(p, xf, k):
+        gvals, gidx = real_route(p, xf, k)
+        logits = xf.float() @ p["w_router"]
+        top = torch.topk(torch.softmax(logits, -1), k + 1, dim=-1).values
+        routes.append((gidx.cpu(), (top[..., k - 1] - top[..., k]).cpu()))
+        return gvals, gidx
+
+    def gather_spy(x, group):
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = real_gather(x, group)
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        sums.append((time.perf_counter() - t) * 1e3)
+        if not operands:            # the checked card pass's partials
+            operands.append(torch.stack(got).float().cpu())
+        return got
+
+    # the warm-up pass is the one checked: spied on for its routes and
+    # operands; the timed passes only time the sum's gather
+    moe._gather_list, moe._route = gather_spy, route_spy
+    try:
+        got = ep_pass(torch, cfg, mine, dev, card)
+        moe._route = real_route
+        ms = []
+        for _ in range(EP_REPS):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            ep_pass(torch, cfg, mine, dev, card)
+            e.record()
+            torch.cuda.synchronize()
+            ms.append(s.elapsed_time(e))
+        sum_ms = sums[1:EP_REPS + 1]
+        moe._route = route_spy
+        cpu = ep_pass(torch, cfg, mine, "cpu", host)
+    finally:
+        moe._gather_list, moe._route = real_gather, real_route
+    local = ep_pass(torch, cfg, inp, dev)                 # every expert
+
+    # the local path's dropped (token, expert) assignments
+    _, gidx = moe._route({"w_router": inp["w_router"]},
+                         inp["x"].reshape(-1, cfg.d_model), cfg.moe.top_k)
+    cap = min(max(1, int(cfg.moe.top_k * EP_S * EP_CF
+                         / cfg.moe.num_experts)), EP_S)
+    counts = torch.bincount(gidx.reshape(-1),
+                            minlength=cfg.moe.num_experts)
+    dropped = int((counts - cap).clamp_min(0).sum())
+
+    rep = {"rank": dist.get_rank(), "device": str(dev),
+           "backend": str(dist.get_backend()), "ms": ms, "sum_ms": sum_ms,
+           "dropped": dropped, "cap": cap, "e_loc": e_loc}
+    # card EP against the card's local path (held in ep_check: the bf16
+    # roundings of the N partials and of their sum, (N + 1)·2^-8 of the
+    # largest partial or output entry)
+    rep["vs_local_out_abs"] = float((got["out"] - local["out"]).abs().max())
+    rep["part_max"] = float(operands[0].abs().max())
+    rep["out_max"] = float(local["out"].abs().max())
+    worst = 0.0
+    for k in EP_KEYS:
+        want = local[k]
+        if k.startswith("we_"):
+            want = want[r * e_loc:(r + 1) * e_loc]
+        worst = max(worst, float((got[k] - want).abs().max()
+                                 / (BF16_EPS * want.abs().max())))
+    rep["vs_local_grad"] = worst
+    # card EP against the CPU's: output bits, then in ulps of the entry's
+    # largest rounded operand (a partial, or the sum) plus the f32
+    # partials' own difference (EP_F32_REL of the largest partial: a
+    # partial that cancels to near 0 is held at f32 accuracy, not at its
+    # own tiny ulp). The hosts' f32 partials can round to neighbours, a
+    # partial's ulp each, and the sum's rounding can add one more (a tie
+    # rounds to even on both sides of it): at most N + 1. A token routed
+    # otherwise (its k-th and (k+1)-th gates a near tie the two hosts'
+    # f32 logits order differently) or whose kept slots differ with it is
+    # counted apart
+    (g_card, _), (g_cpu, gap_cpu) = routes[0], routes[-1]
+    keep_card = _ep_kept(torch, cfg, g_card, cap)
+    keep_cpu = _ep_kept(torch, cfg, g_cpu, cap)
+    same_set = (g_card.sort(-1).values == g_cpu.sort(-1).values).all(-1)
+    flips = ~same_set
+    moved = flips | (keep_card != keep_cpu).any(-1)
+    out_c = cpu["out"]
+    diff = (got["out"].cpu() - out_c).abs()
+    rep["cpu_bitwise"] = float((diff == 0).float().mean())
+    largest = torch.maximum(operands[0].abs().amax(0).reshape(out_c.shape),
+                            out_c.abs())
+    allowed = (_bf16_ulp(torch, largest)
+               + EP_F32_REL * float(operands[0].abs().max()))
+    ulps = (diff / allowed).reshape(-1, cfg.d_model)
+    rep["cpu_ulps"] = float(ulps[~moved.reshape(-1)].max())
+    rep["cpu_max_abs"] = float(diff.max())
+    rep["route_flips"] = int(flips.sum())
+    rep["moved_tokens"] = int(moved.sum())
+    rep["flip_gap_max"] = (float(gap_cpu.reshape(-1)[flips.reshape(-1)]
+                                 .max()) if bool(flips.any()) else 0.0)
+    rep["cpu_grad"] = max(float((got[k].cpu() - cpu[k]).abs().max()
+                                / (BF16_EPS * cpu[k].abs().max()))
+                          for k in EP_KEYS)
+    rep["finite"] = all(bool(torch.isfinite(v).all()) for v in got.values())
+    every = [None] * n
+    dist.all_gather_object(every, rep)
+    return every
+
+
+def _ep_kept(torch, cfg, gidx, cap: int):
+    """Which of each token's routed (token, expert) slots the dispatch
+    keeps (position in its expert below ``cap``), in the token's sorted
+    expert order."""
+    e = cfg.moe.num_experts
+    flat = gidx.reshape(-1)
+    onehot = torch.nn.functional.one_hot(flat, e)
+    pos = (torch.cumsum(onehot, 0) * onehot).sum(-1) - 1
+    keep = (pos < cap).reshape(gidx.shape[:-1] + (-1,))
+    order = gidx.argsort(-1)
+    return torch.gather(keep, -1, order)
+
+
+def ep_check(reports: list, n: int) -> None:
+    """Phase 16 (a)'s gates on every rank's report (module docstring)."""
+    scale = max(max(r["part_max"] for r in reports),
+                max(r["out_max"] for r in reports))
+    for r in reports:
+        r["vs_local_out"] = r["vs_local_out_abs"] / (BF16_EPS * scale)
+        _line("lm-ep", rank=r["rank"], device=r["device"],
+              backend=r["backend"], arch=EP_ARCH, S=EP_S, cf=EP_CF,
+              model_ranks=n, experts_per_rank=r["e_loc"], cap=r["cap"],
+              dropped=r["dropped"],
+              fwd_bwd_ms_each=",".join(f"{x:.3f}" for x in r["ms"]),
+              sum_ms_each=",".join(f"{x:.3f}" for x in r["sum_ms"]),
+              vs_local_out_eps=f"{r['vs_local_out']:.3f}",
+              vs_local_grad_eps=f"{r['vs_local_grad']:.3f}",
+              cpu_bitwise=f"{r['cpu_bitwise']:.6f}",
+              cpu_max_ulps=f"{r['cpu_ulps']:.3f}",
+              cpu_max_abs=f"{r['cpu_max_abs']:.3e}",
+              route_flips=r["route_flips"], moved_tokens=r["moved_tokens"],
+              flip_gate_gap_max=f"{r['flip_gap_max']:.3e}",
+              cpu_grad_eps=f"{r['cpu_grad']:.4f}",
+              note="ranks time-slice one card over gloo: not a scaling "
+                   "number" if r["backend"] == "gloo" else "a card a rank")
+        if not (r["finite"] and r["dropped"] > 0
+                and r["vs_local_out"] <= n + 1
+                and r["vs_local_grad"] <= n + 1
+                and r["cpu_bitwise"] >= EP_BITWISE
+                and r["cpu_ulps"] <= n + 1
+                and r["cpu_grad"] <= 1.0
+                and r["moved_tokens"] <= EP_MOVED_TOKENS
+                and r["flip_gap_max"] <= EP_TIE_GAP):
+            raise AssertionError(f"lm-ep rank {r['rank']}: {r}")
+
+
+def lm_roofline_lines(lm_train: dict) -> dict:
+    """Phase 16 (b): the roofline's count of phase 15's untimed extra step
+    of each 2-layer cut beside phase 14's analytic product FLOPs, and its
+    compute term at the f32 rate beside the measured step."""
+    out = {}
+    for name in LM_ARCHS:
+        a = lm_train[name]
+        t_comp = a["counted_flops"] / F32_FLOPS_PER_S * 1e3
+        out[name] = {"counted": a["counted_flops"],
+                     "product": a["product_flops"], "t_compute_ms": t_comp,
+                     "share": t_comp / a["step_ms"]}
+        if not (a["counted_flops"] > 0 and a["counted_collectives"] == 0):
+            raise AssertionError(f"lm-ep {name}: count {a}")
+        _line("lm-ep", roofline=name, B=LM_TRAIN_B, S=LM_S,
+              counted_flops=f"{a['counted_flops']:.6e}",
+              product_flops=f"{a['product_flops']:.6e}",
+              counted_over_product=(
+                  f"{a['counted_flops'] / a['product_flops']:.4f}"),
+              t_compute_f32_ms=f"{t_comp:.3f}",
+              step_ms=f"{a['step_ms']:.3f}",
+              t_compute_share=f"{t_comp / a['step_ms']:.4f}",
+              note="FlopCounterMode counts matmul-class ops only")
+    return out
+
+
+def dryrun_cli_start(tmp: str) -> list:
+    """Start ``python -m repro_torch.launch.dryrun`` on each of
+    ``DRYRUN_CELLS`` (the single-pod fake mesh; the host's CPU, no card),
+    one process each, all at once."""
+    env = dict(os.environ,
+               PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        out = os.path.join(tmp, f"{arch}_{shape}.jsonl")
+        procs.append((arch, shape, out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", out], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def dryrun_cli_finish(t0: float, procs: list) -> dict:
+    """Wait for the dry-run processes: exit 0, one ``status: "ok"`` record
+    each with finite roofline terms."""
+    import math
+    out = {}
+    for arch, shape, path, proc in procs:
+        try:
+            _, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"dry-run {arch} {shape} still running "
+                                 f"after 300 s")
+        if proc.returncode != 0:
+            raise AssertionError(f"dry-run {arch} {shape} exit "
+                                 f"{proc.returncode}: {err[-2000:]}")
+        with open(path) as f:
+            recs = [json.loads(ln) for ln in f]
+        t = recs[-1].get("roofline", {})
+        terms = [t.get(k) for k in ("flops", "t_compute", "t_memory",
+                                    "t_collective", "roofline_frac")]
+        if len(recs) != 1 or recs[0]["status"] != "ok" or not all(
+                isinstance(v, (int, float)) and math.isfinite(v)
+                for v in terms):
+            raise AssertionError(f"dry-run {arch} {shape}: {recs}")
+        out[arch, shape] = recs[0]
+        _line("lm-ep", dryrun=f"{arch}/{shape}", mesh=recs[0]["mesh"],
+              status="ok", t_compute_ms=f"{t['t_compute'] * 1e3:.2f}",
+              t_memory_ms=f"{t['t_memory'] * 1e3:.2f}",
+              t_collective_ms=f"{t['t_collective'] * 1e3:.2f}",
+              bound=t["bottleneck"],
+              useful_flops_frac=f"{t['useful_flops_frac']:.4f}",
+              step_host_s=recs[0]["extrap_compile_s"],
+              wall_s=f"{time.perf_counter() - t0:.1f}",
+              note="a model on H100 constants, not a measurement")
+    return out
+
+
+def phase_lm_ep(torch, args, lm_train: dict) -> dict:
+    """Phase 16 (see the module docstring)."""
+    from repro_torch.launch.mesh import start_ranks
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        procs = dryrun_cli_start(tmp)
+        try:
+            out = {"ep": start_ranks(ep_rank, EP_RANKS, "cuda", args.seed,
+                                     timeout=300)}
+            ep_check(out["ep"], EP_RANKS)
+            out["roofline"] = lm_roofline_lines(lm_train)
+            out["dryrun"] = dryrun_cli_finish(t0, procs)
+        finally:
+            for *_, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    _line("lm-ep", phase_seconds=f"{time.perf_counter() - t0:.1f}")
     return out
 
 
@@ -3550,6 +3951,30 @@ def lm_mesh_rank(mesh) -> list:
               and shards_ok(tr.opt_state.m, param_shardings(
                   tr.params, rules, role="opt")))
 
+    # the MoE on the same mesh: smoke moonshot takes expert parallelism
+    # (2 experts a model rank), no token dropped (its capacity factor 4)
+    from repro_torch.models import moe
+    mcfg = get_smoke(EP_ARCH)
+
+    def moe_trainer(m):
+        return Trainer(mcfg, opt, LoopConfig(steps=3, log_every=100),
+                       mesh=m, batch=4, seq=32, device=dev)
+
+    moe_one = moe_trainer(None)
+    moe_one_out = moe_one.train()
+    calls, real_ep = [], moe._moe_ep
+    moe._moe_ep = lambda *a: calls.append(1) or real_ep(*a)
+    try:
+        moe_tr = moe_trainer(dm)
+        moe_out = moe_tr.train()
+    finally:
+        moe._moe_ep = real_ep
+    moe_gap = _param_gap(gather(moe_tr.params), moe_one.params,
+                         sum(float(lr_schedule(opt, t)) for t in (1, 2, 3)),
+                         opt.weight_decay)
+    moe_rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(moe_out["losses"], moe_one_out["losses"]))
+
     dcfg = dataclasses.replace(get_smoke("qwen3-8b"), n_heads=4,
                                n_kv_heads=2)
     SHAPES["tiny_decode"] = InputShape("tiny_decode", 64, 8, "decode")
@@ -3573,7 +3998,9 @@ def lm_mesh_rank(mesh) -> list:
             "loss_rel": loss_rel, "losses": out["losses"], **gap,
             "shards": shards, "decode_rel": decode_rel,
             "decode_bitwise": bool(torch.equal(got, want)),
-            "wall_s": wall, "step": int(tr.opt_state.step)}
+            "wall_s": wall, "step": int(tr.opt_state.step),
+            "moe_loss_rel": moe_rel, "moe_max_abs": moe_gap["max_abs"],
+            "moe_bound": moe_gap["bound"], "moe_ep_calls": len(calls)}
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)
     return every
@@ -3584,7 +4011,10 @@ def lm_mesh_check(reports: list) -> None:
     1e-5 relative of the one-rank Trainer's, parameters within the
     sign-flip bound with 99.9% of each leaf's entries within 1e-6 +
     1e-5·|p|, shards
-    of their specs' shapes, 3 steps, decode logits within 1e-5 relative."""
+    of their specs' shapes, 3 steps, decode logits within 1e-5 relative;
+    the MoE Trainer through expert parallelism, its losses within 2^-8
+    relative of one rank's (its outputs' bf16 sum) and its parameters
+    within the sign-flip bound."""
     for r in reports:
         _line("lm-mesh", rank=r["rank"], device=r["device"],
               backend=r["backend"], loss_rel=f"{r['loss_rel']:.2e}",
@@ -3594,10 +4024,16 @@ def lm_mesh_check(reports: list) -> None:
               tight_leaf=r["tight_leaf"], shards=r["shards"],
               decode_rel=f"{r['decode_rel']:.2e}",
               decode_bitwise=r["decode_bitwise"],
-              train_wall_s=f"{r['wall_s']:.2f}")
+              train_wall_s=f"{r['wall_s']:.2f}",
+              moe_ep_calls=r["moe_ep_calls"],
+              moe_loss_rel=f"{r['moe_loss_rel']:.2e}",
+              moe_param_max_abs=f"{r['moe_max_abs']:.3e}",
+              moe_sign_flip_bound=f"{r['moe_bound']:.3e}")
         if not (r["loss_rel"] <= 1e-5 and r["max_abs"] <= r["bound"]
                 and r["tight_share"] >= 0.999 and r["shards"]
-                and r["step"] == 3 and r["decode_rel"] <= 1e-5):
+                and r["step"] == 3 and r["decode_rel"] <= 1e-5
+                and r["moe_ep_calls"] > 0 and r["moe_loss_rel"] <= BF16_EPS
+                and r["moe_max_abs"] <= r["moe_bound"]):
             raise AssertionError(f"lm-mesh rank {r['rank']}: {r}")
 
 
@@ -3741,7 +4177,12 @@ def main(argv=None) -> int:
     # 15. LM training: the lm CLI and the Trainer's loop properties at
     # smoke size, the card's step against the CPU's, and four Trainer steps
     # of each full-width cut (AdamW timed apart)
-    phase_lm_train(torch)
+    lm_train = phase_lm_train(torch)
+
+    # 16. the MoE's expert parallelism at published width on gloo ranks
+    # sharing the card (against the local path and the CPU), the
+    # roofline's count of phase 15's steps, and the dry-run CLI
+    phase_lm_ep(torch, args, lm_train)
     mixed_launches = {"cuda": {QUALITY_MIXED: quality["mixed"]["launches"]}}
     for (tables, tile), m in mixed.items():
         mixed_launches.setdefault(m["kernel"], {})[tables] = m["launches"]

@@ -10,15 +10,23 @@ meta tensors (shapes and dtypes, no allocation: the counterpart of
 On a mesh (parameters stored as DTensors by ``param_shardings``) the
 steps gather each leaf at its use and compute on plain tensors: storage
 is ZeRO-3/FSDP-style, compute is redundant over ``model`` (tensor-parallel
-compute is not ported). A train step runs this rank's rows of the batch
-(the ``batch`` rule's data axes), averages the gradients over those axes
-explicitly (DTensor would not: the replicated gradients differ between
-data ranks that ran different rows), and updates each leaf in its
-optimizer-state layout before redistributing the new parameter to its
-own.
+compute is not ported). The MoE expert leaves are the exception: where
+the models take their expert-parallel path they are gathered over the
+data axes only and stay sharded over ``model`` (each model rank computes
+its experts, ``repro_torch.models.moe``), as the reference gathers them
+over fsdp inside its ``shard_map``. A train step runs this rank's rows of
+the batch (the ``batch`` rule's data axes) under the rules, averages the
+gradients over those axes explicitly (DTensor would not: the replicated
+gradients differ between data ranks that ran different rows), and
+updates each leaf in its optimizer-state layout before redistributing
+the new parameter to its own; an expert leaf's gradient is its model
+rank's slice and takes the same mean. Prefill and serve gather the batch
+and compute it whole on every rank; the MoE's dispatch groups are still
+one data shard's tokens, as the reference's.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Optional
 
 import torch
@@ -33,14 +41,19 @@ from repro_torch.distributed.sharding import (
     placements,
 )
 from repro_torch.models import lm
+from repro_torch.models.moe import token_shards
 from repro_torch.train.optim import (
     AdamWConfig,
     AdamWState,
     adamw_init,
     adamw_update,
-    global_norm,
 )
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import (
+    tree_leaves,
+    tree_map,
+    tree_map_with_path,
+    tree_unflatten,
+)
 
 
 # --------------------------------------------------------------------------
@@ -117,6 +130,43 @@ def gather(tree: Any) -> Any:
     return tree_map(lambda x: x.full_tensor() if _is_dtensor(x) else x, tree)
 
 
+_EXPERT_LEAF = re.compile(r"we_(gate|up|down)$")
+
+
+def _compute_placements(path: str, x) -> tuple:
+    """The placements a step computes the DTensor leaf ``x`` at ``path``
+    in: ``Replicate()`` on every mesh dim, except that a MoE expert leaf
+    keeps its ``model`` placement (its model rank's experts, where the
+    rules shard them)."""
+    from torch.distributed.tensor import Replicate
+    names = x.device_mesh.mesh_dim_names or ()
+    keep = _EXPERT_LEAF.search(path.split("/")[-1]) is not None
+    return tuple(pl if keep and name == "model" else Replicate()
+                 for name, pl in zip(names, x.placements))
+
+
+def gather_at_use(params: Any) -> Any:
+    """``params`` as a step computes with them (module docstring): each
+    DTensor leaf gathered whole, an expert leaf gathered over the data
+    axes into its model rank's block."""
+    def one(path, x):
+        if not _is_dtensor(x):
+            return x
+        return x.redistribute(x.device_mesh,
+                              _compute_placements(path, x)).to_local()
+    return tree_map_with_path(one, params)
+
+
+def _relayout(x: torch.Tensor, like, src: tuple, dst: tuple) -> torch.Tensor:
+    """This rank's shard, in placements ``dst``, of the global tensor shaped
+    as the DTensor ``like`` whose shard in placements ``src`` is ``x``
+    (a local slice: ``src`` replicates every dim ``dst`` shards)."""
+    from torch.distributed.tensor import DTensor
+    placed = DTensor.from_local(x, like.device_mesh, src, run_check=False,
+                                shape=like.shape, stride=like.stride())
+    return placed.redistribute(like.device_mesh, dst).to_local()
+
+
 def _rows(x: torch.Tensor, mesh, rules: Rules) -> torch.Tensor:
     """This rank's rows of a global batch leaf, as ``batch`` resolves."""
     if _is_dtensor(x):
@@ -189,19 +239,17 @@ def make_train_step(cfg: ArchConfig, opt: AdamWConfig,
 def _mesh_train_step(cfg, opt, microbatches, params, opt_state, batch):
     """The train step on DTensor parameters and optimizer state (module
     docstring): the same numbers as one rank's step on the whole batch,
-    up to the order of the gradient sums."""
+    up to the order of the gradient sums (and, for a MoE, up to its
+    dispatch groups, which are the data shards' rows, and the bf16 sum of
+    its expert-parallel outputs)."""
     import torch.distributed as dist
-    from torch.distributed.tensor import DTensor
 
     leaves = tree_leaves(params)
     mesh = leaves[0].device_mesh
     rules = current_rules() or Rules(mesh)
     local = {k: _rows(v, mesh, rules) for k, v in batch.items()}
-    full = tree_map(lambda p: p.full_tensor(), params)
-    loss, grads = _loss_and_grads(cfg, microbatches, full, local)
-    grads = [g.contiguous() for g in grads]
 
-    # the mean over the mesh dims the rows were split over
+    # the mesh dims the rows were split over
     tok = batch["tokens"]
     row_place = (tok.placements if _is_dtensor(tok) else rules.sharding(
         ("batch", None), tok.shape).placements)
@@ -209,22 +257,44 @@ def _mesh_train_step(cfg, opt, microbatches, params, opt_state, batch):
              if p.is_shard(0)]
     n = 1
     for axis in split:
+        n *= mesh.size(mesh.mesh_dim_names.index(axis))
+
+    places = []
+    tree_map_with_path(lambda path, x: places.append(
+        _compute_placements(path, x)), params)
+    full = gather_at_use(params)
+    with activate_rules(rules), token_shards(n):
+        loss, grads = _loss_and_grads(cfg, microbatches, full, local)
+    grads = [g.contiguous() for g in grads]
+
+    # the mean over the mesh dims the rows were split over
+    for axis in split:
         group = mesh.get_group(axis)
-        n *= dist.get_world_size(group)
         for t in grads + [loss]:
             dist.all_reduce(t, group=group)
     if n > 1:
         grads = [g / n for g in grads]
         loss = loss / n
 
+    # the global norm: a leaf computed in its model rank's slice adds its
+    # squares from every model rank
+    sharded = [any(p.is_shard() for p in pl) for pl in places]
+    sq = sum(torch.sum(torch.square(g.float()))
+             for g, sh in zip(grads, sharded) if not sh)
+    if any(sharded):
+        part = sum(torch.sum(torch.square(g.float()))
+                   for g, sh in zip(grads, sharded) if sh)
+        dist.all_reduce(part, group=mesh.get_group("model"))
+        sq = sq + part
+    gnorm = torch.sqrt(sq)
+
     # each leaf updated in its optimizer-state layout, then redistributed
     # to its parameter layout
-    gnorm = global_norm(grads)
     ms, vs = tree_leaves(opt_state.m), tree_leaves(opt_state.v)
-    p_sl = [distribute(f, mesh, m.placements).to_local()
-            for f, m in zip(tree_leaves(full), ms)]
-    g_sl = [distribute(g, mesh, m.placements).to_local()
-            for g, m in zip(grads, ms)]
+    p_sl = [_relayout(f, p, pl, m.placements)
+            for f, p, pl, m in zip(tree_leaves(full), leaves, places, ms)]
+    g_sl = [_relayout(g, p, pl, m.placements)
+            for g, p, pl, m in zip(grads, leaves, places, ms)]
     step = opt_state.step
     if _is_dtensor(step):
         step = step.to_local()              # replicated: the whole value
@@ -233,11 +303,7 @@ def _mesh_train_step(cfg, opt, microbatches, params, opt_state, batch):
         AdamWState(step, [m.to_local() for m in ms],
                    [v.to_local() for v in vs]), gnorm=gnorm)
     for p, new, m in zip(leaves, p_sl, ms):
-        placed = DTensor.from_local(new, mesh, m.placements,
-                                    run_check=False, shape=p.shape,
-                                    stride=p.stride())
-        p.to_local().copy_(placed.redistribute(mesh, p.placements)
-                           .to_local())
+        p.to_local().copy_(_relayout(new, p, m.placements, p.placements))
     opt_state = AdamWState(step=local_state.step, m=opt_state.m,
                            v=opt_state.v)
     return params, opt_state, {"loss": loss, "step": opt_state.step}
@@ -245,7 +311,7 @@ def _mesh_train_step(cfg, opt, microbatches, params, opt_state, batch):
 
 def make_prefill_step(cfg: ArchConfig):
     def prefill_step(params, batch):
-        params, batch = gather(params), gather(batch)
+        params, batch = gather_at_use(params), gather(batch)
         logits, cache, clen = lm.prefill(cfg, params, batch["tokens"],
                                          batch.get("prefix_embeds"))
         return {"logits": logits, "cache": cache, "cache_len": clen}
@@ -257,7 +323,7 @@ def make_serve_step(cfg: ArchConfig):
     """One-token decode against a seq_len KV/state cache."""
 
     def serve_step(params, batch):
-        params, batch = gather(params), gather(batch)
+        params, batch = gather_at_use(params), gather(batch)
         logits, cache = lm.decode_step(cfg, params, batch["cache"],
                                        batch["cache_len"], batch["tokens"])
         return {"logits": logits, "cache": cache}

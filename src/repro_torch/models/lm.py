@@ -19,6 +19,7 @@ modality-frontend stub) to the token embeddings.
 """
 from __future__ import annotations
 
+import contextvars
 import functools
 from typing import Dict, Optional, Tuple
 
@@ -137,18 +138,28 @@ def _loop_blocks(cfg: ArchConfig, body, carry, blocks_xs, remat=True):
     """``body(carry, xs_i) -> (carry, y_i)`` over the stacked blocks, each
     block checkpointed while grads are on and ``remat`` and ``cfg.remat``
     hold; returns the carry and the ys stacked along a new leading dim (or
-    None)."""
+    None).
+
+    A checkpointed block runs in a copy of the caller's context: its
+    recompute runs where the backward does, on CUDA the autograd engine's
+    device thread, which does not inherit the caller's context variables
+    (the active sharding rules, the MoE's ``token_shards``)."""
     nb = tree_leaves(blocks_xs)[0].shape[0]
     remat = remat and cfg.remat and torch.is_grad_enabled()
     kw = {}
     if remat and cfg.remat_policy == "dots":
         kw["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _save_dots)
+    if remat:
+        caller = contextvars.copy_context()
+
+        def block(*a):
+            return caller.copy().run(body, *a)
     ys = []
     for i in range(nb):
         xs = tree_map(lambda x: x[i], blocks_xs)
         if remat:
-            carry, y = ckpt.checkpoint(body, carry, xs, use_reentrant=False,
+            carry, y = ckpt.checkpoint(block, carry, xs, use_reentrant=False,
                                        **kw)
         else:
             carry, y = body(carry, xs)

@@ -10,7 +10,9 @@ module, which its ranks import as their main module, and the chaos
 tool's top level, which its workers import as theirs. The LM substrate
 (configs, models, elastic, compression, the sharding rules, AdamW, the
 steps and the training loop) loads neither jax nor the reference, also
-when a ``Trainer`` takes a step, and its configs load no torch."""
+when a ``Trainer`` takes a step, and its configs load no torch; nor do the
+dry-run and roofline modules (costmodel, roofline, dryrun, report), also
+when a cell runs on a fake process group and its table is rendered."""
 import ast
 import os
 import pathlib
@@ -67,7 +69,9 @@ def test_import_leaves_jax_and_reference_unloaded():
              "repro_torch.distributed.compression",
              "repro_torch.distributed.sharding", "repro_torch.launch.steps",
              "repro_torch.train.optim", "repro_torch.train.loop",
-             "repro_torch.tree"))))
+             "repro_torch.tree", "repro_torch.launch.costmodel",
+             "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+             "repro_torch.launch.report"))))
         print("BAD", bad)
     """.format(repo=REPO, load_tool=LOAD_TOOL.format(tool=str(TOOL)).strip())
     out = run_subprocess(code, timeout=300)
@@ -102,7 +106,9 @@ LM_PRESETS = ("mamba2_1p3b", "moonshot_v1_16b_a3b", "arctic_480b",
 LM_MODULES = (("models", "models.layers", "models.lm", "models.moe",
                "models.ssm", "configs.base", "distributed.elastic",
                "distributed.compression", "distributed.sharding",
-               "launch.steps", "train.optim", "train.loop", "tree")
+               "launch.steps", "train.optim", "train.loop", "tree",
+               "launch.costmodel", "launch.roofline", "launch.dryrun",
+               "launch.report")
               + tuple(f"configs.{p}" for p in LM_PRESETS))
 
 
@@ -146,6 +152,38 @@ def test_lm_substrate_leaves_jax_and_reference_unloaded():
     out = run_subprocess(code, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "CONFIGS []" in out.stdout, out.stdout
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_dryrun_leaves_jax_and_reference_unloaded():
+    """A dry-run cell (the expert-parallel MoE of smoke moonshot on a fake
+    ``(data=2, model=2)`` group) and its report load neither jax nor the
+    reference."""
+    code = """
+        import dataclasses, sys
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        from repro_torch.configs import get_smoke
+        from repro_torch.configs.base import SHAPES, InputShape
+        from repro_torch.launch import dryrun, report
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=4)
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        SHAPES["tiny_train"] = InputShape("tiny_train", 32, 4, "train")
+        rec = dryrun.run_cell("moonshot-v1-16b-a3b", "tiny_train", False,
+                              cfg=get_smoke("moonshot-v1-16b-a3b"),
+                              mesh=mesh, verbose=False)
+        report.summarize({("a", "b", "c"): rec})
+        print("STATUS", rec["status"], rec["roofline"]["flops"] > 0)
+        print("BAD", sorted(n for n in sys.modules
+                            if n.split(".")[0] in ("jax", "repro",
+                                                   "ml_dtypes")))
+    """
+    out = run_subprocess(code, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "STATUS ok True" in out.stdout, out.stdout
     assert "BAD []" in out.stdout, out.stdout
 
 
