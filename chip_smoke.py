@@ -254,7 +254,8 @@ non-zero):
               gradient within 2^-8 of its largest entry); some token must
               drop; ms per forward+backward per rank (CUDA events, 3
               after a warm-up) and the sum's ms (host clock around the
-              gather of the partials): the ranks time-slice one card, so
+              rank-order sum of the partials, an all-to-all and an
+              all-gather): the ranks time-slice one card, so
               no scaling shows. (b) Phase 15's counted step of each
               2-layer cut: the counted FLOPs (``FlopCounterMode``:
               matmul-class ops only) beside phase 14's analytic product
@@ -264,6 +265,30 @@ non-zero):
               fake mesh (the host's CPU; processes started at the phase's
               start): a ``status: "ok"`` record each with finite terms (a
               model on H100 constants, not a measurement).
+17. lm-tp   — tensor-parallel compute (``repro_torch.launch.steps`` on
+              local shards over ``model``; no kernel) of qwen3-8b's and
+              mamba2-1.3b's 2-layer cuts at published width (f32, TF32
+              off, B=1, S=512) on 2 gloo ranks sharing the card as a
+              (data=1, model=2) mesh: a train step, a prefill and a
+              decode token through ``build_cell``'s cells (the decode
+              from one process's prefill cache with 16 free slots), each
+              timed (CUDA events), then run once more under a spy that
+              times every c10d collective (host clock between
+              synchronizes) and counts DTensor's functional collectives;
+              peak memory a rank. Against one process on the card from
+              the same seeded parameters and tokens (rank by rank, the
+              other rank waiting with its memory freed): the loss within
+              1e-5 relative, every parameter block within the sign-flip
+              bound 2·lr·(1 + wd·max|p|) and 99.9% of each leaf within
+              1e-6 + 1e-5·|p|; each rank's block of the prefill logits
+              within 1e-4 of the largest entry, of the decode logits
+              within 2^-8 (the token's attention weights are rounded to
+              the bf16 cache's dtype before the PV product, so a last-bit
+              f32 difference upstream can move one to its neighbour);
+              each cache block within one bf16 step of the entry (bf16
+              leaves) plus 1e-4 of the leaf's largest; no DTensor functional
+              collective (the data gathers of a data=1 mesh are local,
+              the TP collectives c10d calls).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the repository's ``src/`` beside it, the script fails before
@@ -3575,13 +3600,16 @@ def ep_pass(torch, cfg, inp: dict, device, mesh=None) -> dict:
     ``device``: under the rules of ``mesh`` (expert parallelism over its
     ``model`` dim, ``inp`` holding this rank's experts), or without rules
     (the local path, ``inp`` holding every expert)."""
-    from repro_torch.distributed.sharding import axis_rules
+    from repro_torch.distributed.sharding import axis_rules, local_shards
     from repro_torch.models import moe
 
     leaf = {k: inp[k].detach().to(device, copy=True).requires_grad_(True)
             for k in EP_KEYS}
     p = {k: v for k, v in leaf.items() if k != "x"}
-    with (axis_rules(mesh) if mesh is not None else contextlib.nullcontext()):
+    with contextlib.ExitStack() as stack:
+        if mesh is not None:
+            stack.enter_context(axis_rules(mesh))
+            stack.enter_context(local_shards())
         out = moe.moe_block(cfg, p, leaf["x"])
     (out * inp["w"].to(device)).sum().backward()
     res = {"out": out.detach()}
@@ -3605,6 +3633,7 @@ def ep_rank(mesh, seed: int) -> list:
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+    from repro_torch.distributed import collectives
     from repro_torch.models import moe
 
     for f in (torch.backends.cuda.matmul, torch.backends.cudnn):
@@ -3624,7 +3653,7 @@ def ep_rank(mesh, seed: int) -> list:
                 else v) for k, v in inp.items()}
 
     sums, operands, routes = [], [], []
-    real_gather, real_route = moe._gather_list, moe._route
+    real_sum, real_route = collectives._rank_order_sum, moe._route
 
     def route_spy(p, xf, k):
         gvals, gidx = real_route(p, xf, k)
@@ -3633,21 +3662,23 @@ def ep_rank(mesh, seed: int) -> list:
         routes.append((gidx.cpu(), (top[..., k - 1] - top[..., k]).cpu()))
         return gvals, gidx
 
-    def gather_spy(x, group):
+    def sum_spy(x, group):
         if x.is_cuda:
             torch.cuda.synchronize()
         t = time.perf_counter()
-        got = real_gather(x, group)
+        got = real_sum(x, group)
         if x.is_cuda:
             torch.cuda.synchronize()
         sums.append((time.perf_counter() - t) * 1e3)
         if not operands:            # the checked card pass's partials
-            operands.append(torch.stack(got).float().cpu())
+            operands.append(torch.stack(collectives._gather_list(
+                x, group)).float().cpu())
         return got
 
     # the warm-up pass is the one checked: spied on for its routes and
-    # operands; the timed passes only time the sum's gather
-    moe._gather_list, moe._route = gather_spy, route_spy
+    # operands (gathered apart, untimed); the timed passes only time the
+    # sum
+    collectives._rank_order_sum, moe._route = sum_spy, route_spy
     try:
         got = ep_pass(torch, cfg, mine, dev, card)
         moe._route = real_route
@@ -3664,7 +3695,7 @@ def ep_rank(mesh, seed: int) -> list:
         moe._route = route_spy
         cpu = ep_pass(torch, cfg, mine, "cpu", host)
     finally:
-        moe._gather_list, moe._route = real_gather, real_route
+        collectives._rank_order_sum, moe._route = real_sum, real_route
     local = ep_pass(torch, cfg, inp, dev)                 # every expert
 
     # the local path's dropped (token, expert) assignments
@@ -4037,6 +4068,391 @@ def lm_mesh_check(reports: list) -> None:
             raise AssertionError(f"lm-mesh rank {r['rank']}: {r}")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: tensor-parallel compute (products on local shards over ``model``)
+# of the 2-layer cuts on gloo ranks sharing the card; tools/torch_lm_phase.py
+# --mesh 4 runs starcoder2-3b's at model=4 on four cards with NCCL
+# ---------------------------------------------------------------------------
+
+TP_ARCHS = ("qwen3-8b", "mamba2-1.3b")
+TP_MESH = (1, 2)                  # (data, model): gloo ranks on one card
+TP_FOUR = (("starcoder2-3b",), (1, 4))   # four cards: the kv_seq_model decode
+TP_PAD = 16                       # decode slots past the prefill
+TP_REL = 1e-4                     # logits and f32 caches, of the largest entry
+# decode logits where the cache's positions are split over ``model``
+# (``kv_seq_model``), of the largest entry: each rank's partial softmax
+# weights are rounded to the cache's dtype (bf16) before the PV product,
+# as the reference's are, and they differ from one process's weights by
+# the combine's rescaling, so a weight can round to its other bf16
+# neighbour. Four-card readings of starcoder2-3b's cut (NVIDIA H100 80GB
+# HBM3, 700 W): 3.91e-4 to 4.80e-4; the same decode on an f32 copy of the
+# cache is held to TP_REL (``decode_rel_f32``). The limit leaves twice
+# the largest reading.
+TP_SPLIT_DECODE_REL = 1e-3
+
+
+class _CommSpy:
+    """Host ms (synchronized) of every c10d collective the ranks' code
+    issues, and a count of DTensor's functional collectives (a
+    ``TorchDispatchMode`` over the ``_c10d_functional`` ops), while
+    entered."""
+
+    NAMES = ("all_gather", "all_to_all_single", "all_reduce")
+
+    def __init__(self, torch):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        self.torch, self.ms, self.calls, self.funcol = torch, 0.0, 0, 0
+        spy = self
+
+        class Count(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func.namespace == "_c10d_functional":
+                    spy.funcol += 1
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Count()
+
+    def _wrap(self, real):
+        torch = self.torch
+
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t) * 1e3
+            self.calls += 1
+            return out
+        return call
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from repro_torch.distributed import collectives
+        self.saved = [(dist, n, getattr(dist, n)) for n in self.NAMES]
+        self.saved.append((collectives, "_ALL_GATHER",
+                           collectives._ALL_GATHER))
+        for mod, name, real in self.saved:
+            setattr(mod, name, self._wrap(real))
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+
+
+def _tp_timed(torch, fn):
+    """``fn()`` between CUDA events: (its result, ms)."""
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def _tp_slice(full, like, mesh):
+    """One process's tensor ``full`` sliced to this rank's block by the
+    placements of ``like`` (a DTensor, or anything with placements): a
+    local narrow on ``full``'s device, no collective."""
+    x = full
+    for i, p in enumerate(like.placements):
+        if p.is_shard():
+            k = x.shape[p.dim] // mesh.size(i)
+            x = x.narrow(p.dim, mesh.get_local_rank(
+                mesh.mesh_dim_names[i]) * k, k)
+    return x
+
+
+def _tp_cache_excess(torch, got, want, mesh) -> float:
+    """The worst of a cache's local blocks against one process's cache
+    sliced, in units of its allowance: one bf16 step of the entry for a
+    bf16 leaf, plus ``TP_REL`` of the leaf's largest entry."""
+    from repro_torch.tree import tree_leaves
+    worst = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        w = _tp_slice(w, g, mesh).cpu().float()
+        d = (g.to_local().float() - w).abs()
+        if g.dtype == torch.bfloat16:
+            d = d - BF16_EPS * 2 * (1 + BF16_EPS * 2) * w.abs()
+        worst = max(worst, float(d.max()) / (TP_REL * float(w.abs().max())
+                                             + 1e-30))
+    return worst
+
+
+def tp_arch(torch, np, dm, dev, name: str, seed: int) -> dict:
+    """One 2-layer cut at published width on the mesh ``dm``: a train
+    step, a prefill and a decode token through ``build_cell``'s cells,
+    each timed (CUDA events) and then run once more under
+    :class:`_CommSpy`; one process's steps on the same card (rank by
+    rank, the others waiting with their memory freed) from the same
+    seeded parameters and tokens, against which every rank holds its
+    blocks; the decode cell starts from one process's prefill cache with
+    ``TP_PAD`` free slots."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import SHAPES, InputShape
+    from repro_torch.launch.steps import (build_cell, make_prefill_step,
+                                          make_serve_step, make_train_step)
+    from repro_torch.models import lm
+    from repro_torch.train.optim import AdamWConfig, adamw_init, lr_schedule
+    from repro_torch.tree import tree_leaves, tree_map
+
+    full_cfg = get_arch(name)
+    cfg = dataclasses.replace(
+        full_cfg, n_layers=LM_LAYERS * len(lm.block_pattern(full_cfg)))
+    opt = AdamWConfig(lr=1e-4, total_steps=2, warmup_steps=1)
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_S + 1))
+                            .astype(np.int32)).to(dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    dtok = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 1))
+                            .astype(np.int32)).to(dev)
+    SHAPES["tp_train"] = InputShape("tp_train", LM_S, 1, "train")
+    SHAPES["tp_prefill"] = InputShape("tp_prefill", LM_S, 1, "prefill")
+    SHAPES["tp_decode"] = InputShape("tp_decode", LM_S + TP_PAD, 1,
+                                     "decode")
+    out = {"arch": name, "mesh": tuple(dm.shape)}
+
+    def fresh():
+        torch.cuda.empty_cache()
+        return lm.init_params(cfg, seed=seed, device=dev)
+
+    def host(tree):         # a copy, also where the tensors are the host's
+        return tree_map(lambda x: x.to_local().to("cpu", copy=True), tree)
+
+    # the mesh's train step and prefill
+    torch.cuda.reset_peak_memory_stats()
+    cell, _, _ = build_cell(cfg, "tp_train", dm, opt=opt,
+                            param_dtype=torch.float32)
+    # each rank's blocks placed before the timed call: no whole copy of
+    # the leaves or the moments stays alive beside them through the step
+    params = fresh()
+    params, state = cell.place(params, adamw_init(params))
+    (params, state, m), out["train_ms"] = _tp_timed(
+        torch, lambda: cell(params, state, batch))
+    out["loss"] = float(m["loss"])
+    mine = host(params)
+    places = [x.placements for x in tree_leaves(params)]
+    with _CommSpy(torch) as spy:
+        cell(params, state, batch)
+    out["train_comm_ms"], out["train_comms"] = spy.ms, spy.calls
+    funcol = spy.funcol
+    del params, state
+    cell, _, _ = build_cell(cfg, "tp_prefill", dm,
+                            param_dtype=torch.float32)
+    params, = cell.place(fresh())
+    pre, out["prefill_ms"] = _tp_timed(
+        torch, lambda: cell(params, {"tokens": batch["tokens"]}))
+    with _CommSpy(torch) as spy:
+        cell(params, {"tokens": batch["tokens"]})
+    out["prefill_comm_ms"], out["prefill_comms"] = spy.ms, spy.calls
+    funcol += spy.funcol
+    pre_logits = pre["logits"].to_local().cpu()
+    pre_place = _Placed(pre["logits"].placements)
+    pre_cache = tree_map(lambda x: _Local(x.to_local().cpu(), x),
+                         pre["cache"])
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, pre
+
+    # one process on the same card, rank by rank
+    r = dist.get_rank()
+    for turn in range(dist.get_world_size()):
+        dist.barrier()
+        if turn != r:
+            continue
+        one = fresh()
+        st = adamw_init(one)
+        one, st, one_m = make_train_step(cfg, opt)(one, st, batch)
+        out["one_loss"] = float(one_m["loss"])
+        want = [_tp_slice(w, _Placed(p), dm)
+                for w, p in zip(tree_leaves(one), places)]
+        out.update(_param_gap(tree_leaves(mine), want,
+                              float(lr_schedule(opt, 1)),
+                              opt.weight_decay))
+        del one, st, want, mine
+        one = fresh()
+        wp = make_prefill_step(cfg)(one, {"tokens": batch["tokens"]})
+        out["prefill_rel"] = _rel(torch, pre_logits, _tp_slice(
+            wp["logits"], pre_place, dm).cpu())
+        out["prefill_cache"] = _tp_cache_excess(torch, pre_cache,
+                                                wp["cache"], dm)
+        cache = _pad_kv(torch, wp["cache"], TP_PAD)
+        wd = make_serve_step(cfg)(one, {
+            "tokens": dtok, "cache": cache,
+            "cache_len": torch.tensor(LM_S, dtype=torch.int32)})
+        one_dec = {"logits": wd["logits"].cpu(),
+                   "cache": tree_map(lambda x: x.cpu(), wd["cache"])}
+        cache_host = tree_map(lambda x: x.cpu(), cache)
+        cache32 = tree_map(lambda x: x.float(), cache)
+        one_dec["logits_f32"] = make_serve_step(cfg)(one, {
+            "tokens": dtok, "cache": cache32,
+            "cache_len": torch.tensor(LM_S, dtype=torch.int32)})[
+                "logits"].cpu()
+        del one, wp, wd, cache, cache32
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # the mesh's decode token from one process's cache
+    cell, _, _ = build_cell(cfg, "tp_decode", dm, param_dtype=torch.float32)
+    params, = cell.place(fresh())
+
+    def dec_batch(dtype=None):
+        return {"tokens": dtok,
+                "cache": tree_map(lambda x: x.to(dev, dtype), cache_host),
+                "cache_len": torch.tensor(LM_S, dtype=torch.int32,
+                                          device=dev)}
+
+    b = dec_batch()
+    dec, out["decode_ms"] = _tp_timed(torch, lambda: cell(params, b))
+    b = dec_batch()
+    with _CommSpy(torch) as spy:
+        cell(params, b)
+    out["decode_comm_ms"], out["decode_comms"] = spy.ms, spy.calls
+    out["funcol"] = funcol + spy.funcol
+    out["decode_rel"] = _rel(torch, dec["logits"].to_local().cpu(),
+                             _tp_slice(one_dec["logits"], dec["logits"], dm))
+    out["decode_cache"] = _tp_cache_excess(
+        torch, tree_map(lambda x: _Local(x.to_local().cpu(), x),
+                        dec["cache"]), one_dec["cache"], dm)
+    out["finite"] = bool(torch.isfinite(dec["logits"].to_local()).all())
+    out["split_positions"] = any(                    # a KV cache's dim 2
+        p.is_shard(2) for blk in dec["cache"] if "k" in blk
+        for p in blk["k"].placements)
+    # the same token on an f32 copy of the cache: no weight is rounded
+    del dec, b
+    dec = cell(params, dec_batch(torch.float32))
+    out["decode_rel_f32"] = _rel(
+        torch, dec["logits"].to_local().cpu(),
+        _tp_slice(one_dec["logits_f32"], dec["logits"], dm))
+    del params, dec
+    torch.cuda.empty_cache()
+    return out
+
+
+class _Placed:
+    """Stands for a DTensor in :func:`_tp_slice`: its placements only."""
+
+    def __init__(self, placements):
+        self.placements = placements
+
+
+class _Local(_Placed):
+    """A host copy of a DTensor's local block, with its placements."""
+
+    def __init__(self, local, like):
+        super().__init__(like.placements)
+        self.local, self.dtype = local, local.dtype
+
+    def to_local(self):
+        return self.local
+
+
+def tp_rank(mesh, seed: int, shape=TP_MESH, archs=TP_ARCHS) -> list:
+    """Phase 17 on one rank of a (data, model) ``shape`` mesh (module
+    docstring): :func:`tp_arch` of each arch. Returns every rank's
+    reports."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    for f in (torch.backends.cuda.matmul, torch.backends.cudnn):
+        f.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // 4))
+    dm = init_device_mesh(mesh.device.type, shape,
+                          mesh_dim_names=("data", "model"))
+    reps = []
+    for name in archs:
+        t0 = time.perf_counter()
+        rep = tp_arch(torch, np, dm, mesh.device, name, seed)
+        rep.update(rank=dist.get_rank(), device=str(mesh.device),
+                   backend=str(dist.get_backend()),
+                   wall_s=time.perf_counter() - t0)
+        reps.append(rep)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, reps)
+    return every
+
+
+def tp_check(reports: list) -> None:
+    """Phase 17's gates on every rank's reports: the loss within
+    ``LM_SMOKE_REL`` of one process's, every parameter block within the
+    sign-flip bound and 99.9% of each leaf within 1e-6 + 1e-5·|p|, the
+    prefill logits within ``TP_REL`` and the decode logits within
+    ``TP_REL`` of one process's largest (``TP_SPLIT_DECODE_REL`` where the
+    cache's positions are split; on an f32 copy of the cache ``TP_REL``
+    always), the caches within their allowance (``_tp_cache_excess`` at
+    most 1), finite logits, and no DTensor functional collective."""
+    for reps in reports:
+        for r in reps:
+            loss_rel = abs(r["loss"] - r["one_loss"]) / abs(r["one_loss"])
+            _line("lm-tp", rank=r["rank"], device=r["device"],
+                  backend=r["backend"], arch=r["arch"],
+                  mesh="data=%d,model=%d" % r["mesh"], B=1, S=LM_S,
+                  train_ms=f"{r['train_ms']:.3f}",
+                  train_comm_ms=f"{r['train_comm_ms']:.3f}",
+                  train_comms=r["train_comms"],
+                  prefill_ms=f"{r['prefill_ms']:.3f}",
+                  prefill_comm_ms=f"{r['prefill_comm_ms']:.3f}",
+                  prefill_comms=r["prefill_comms"],
+                  decode_ms=f"{r['decode_ms']:.3f}",
+                  decode_comm_ms=f"{r['decode_comm_ms']:.3f}",
+                  decode_comms=r["decode_comms"],
+                  peak_gib=f"{r['peak_gib']:.2f}",
+                  loss_rel=f"{loss_rel:.2e}",
+                  param_max_abs=f"{r['max_abs']:.3e}",
+                  sign_flip_bound=f"{r['bound']:.3e}",
+                  tight_share=f"{r['tight_share']:.6f}",
+                  prefill_rel=f"{r['prefill_rel']:.2e}",
+                  prefill_cache=f"{r['prefill_cache']:.3f}",
+                  decode_rel=f"{r['decode_rel']:.2e}",
+                  split_positions=r["split_positions"],
+                  decode_rel_f32=f"{r['decode_rel_f32']:.2e}",
+                  decode_cache=f"{r['decode_cache']:.3f}",
+                  funcol=r["funcol"], wall_s=f"{r['wall_s']:.1f}",
+                  note=("comm ms: a second run under a synchronizing spy; "
+                        "ranks time-slice one card over gloo: not a "
+                        "scaling number") if r["backend"] == "gloo"
+                  else "comm ms: a second run under a synchronizing spy")
+            if not (loss_rel <= LM_SMOKE_REL and r["max_abs"] <= r["bound"]
+                    and r["tight_share"] >= 0.999
+                    and r["prefill_rel"] <= TP_REL
+                    and r["decode_rel"] <= (TP_SPLIT_DECODE_REL
+                                            if r["split_positions"]
+                                            else TP_REL)
+                    and r["decode_rel_f32"] <= TP_REL
+                    and r["prefill_cache"] <= 1.0
+                    and r["decode_cache"] <= 1.0
+                    and r["finite"] and r["funcol"] == 0):
+                raise AssertionError(f"lm-tp rank {r['rank']}: {r}")
+
+
+def phase_lm_tp(args) -> list:
+    """Phase 17 (see the module docstring). This process's cached blocks
+    are freed first: the ranks share the card with it."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.mesh import start_ranks
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() / 2 ** 30
+    reports = start_ranks(tp_rank, TP_MESH[0] * TP_MESH[1], "cuda",
+                          args.seed, timeout=300)
+    tp_check(reports)
+    _line("lm-tp", phase_seconds=f"{time.perf_counter() - t0:.1f}",
+          parent_reserved_gib=f"{held:.2f}")
+    return reports
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4183,6 +4599,11 @@ def main(argv=None) -> int:
     # sharing the card (against the local path and the CPU), the
     # roofline's count of phase 15's steps, and the dry-run CLI
     phase_lm_ep(torch, args, lm_train)
+
+    # 17. tensor-parallel compute: qwen3-8b's and mamba2-1.3b's cuts on a
+    # (data=1, model=2) mesh of gloo ranks sharing the card, a train step,
+    # a prefill and a decode token against one process on the card
+    phase_lm_tp(args)
     mixed_launches = {"cuda": {QUALITY_MIXED: quality["mixed"]["launches"]}}
     for (tables, tile), m in mixed.items():
         mixed_launches.setdefault(m["kernel"], {})[tables] = m["launches"]

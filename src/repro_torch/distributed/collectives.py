@@ -27,10 +27,33 @@ the backend of ranks that share one card, runs all four on CUDA tensors
 directly in the torch the H100 machine has (2.11.0+cu128:
 ``tools/torch_gloo_probe.py``, PERF.md §6), and no faster through pinned
 host buffers, so nothing is staged on the host.
+
+Tensor and expert parallelism over a ``DeviceMesh``'s ``model`` axis (the
+LM substrate's, ``repro_torch.models``) compute on local shards with two
+autograd pairs on a process group, in the Megatron style:
+
+* :func:`from_replicated` — forward the identity on a value every rank of
+  the group holds alike; backward its gradient summed over the group (each
+  rank's is the part through its own shard). It marks where a replicated
+  value (an activation, a replicated parameter) enters rank-specific
+  compute: the input of a column-parallel product, a weight each rank
+  uses whole.
+* :func:`sum_over_model` — forward the sum of every rank's ``x`` in rank
+  order, in ``x``'s dtype (the output of a row-parallel product: the
+  reference's ``psum``); backward the identity (what follows it is
+  computed alike on every rank).
+
+* :func:`block_of_replicated` — forward this rank's block of such a
+  value (a replicated weight each rank slices); backward the blocks'
+  gradients gathered from every rank (half a sum's traffic, no zeros).
+
+Composed, ``from_replicated(sum_over_model(x))`` sums both ways (a sum
+whose consumers are rank-specific, such as a sharded norm's mean of
+squares). :func:`gather_cat` and :func:`max_over` carry no gradient.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, List, Tuple
 
 import torch
 import torch.distributed as dist
@@ -122,3 +145,128 @@ def broadcast(x: torch.Tensor, mesh, src: int = 0) -> torch.Tensor:
         src = dist.get_global_rank(mesh.group, src)
     dist.broadcast(x, src=src, group=mesh.group)
     return x
+
+
+# --------------------------------------------------------------------------
+# tensor and expert parallelism: the autograd pairs (module docstring)
+# --------------------------------------------------------------------------
+def _gather_list(x: torch.Tensor, group) -> List[torch.Tensor]:
+    """Every rank's ``x`` of ``group``, in group-rank order (bf16 goes as
+    its bytes, which every backend carries)."""
+    n = dist.get_world_size(group)
+    bits = x.contiguous()
+    if x.dtype == torch.bfloat16:
+        bits = bits.view(torch.uint8)
+    out = [torch.empty_like(bits) for _ in range(n)]
+    dist.all_gather(out, bits, group=group)
+    if x.dtype == torch.bfloat16:
+        out = [o.view(torch.bfloat16) for o in out]
+    return out
+
+
+def _rank_order_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``x`` of ``group``, each element added in
+    rank order in ``x``'s dtype (the same bits on every rank), moving what
+    a ring all-reduce moves: an all-to-all hands each rank one block of
+    every rank's ``x`` (the tensor flattened and padded to a multiple of
+    the group's size), each rank sums its block in rank order, and an
+    all-gather returns the summed blocks. Tensors travel as their bytes,
+    which every backend carries."""
+    n = dist.get_world_size(group)
+    flat = x.contiguous().reshape(-1)
+    k = -(-flat.numel() // n)
+    if k * n != flat.numel():
+        flat = torch.cat([flat, flat.new_zeros(k * n - flat.numel())])
+    send = flat.reshape(n, k).view(torch.uint8)
+    got = torch.empty_like(send)
+    dist.all_to_all_single(got, send, group=group)
+    parts = got.view(x.dtype)
+    acc = parts[0]
+    for r in range(1, n):
+        acc = acc + parts[r]
+    out = torch.empty((n, acc.numel() * acc.element_size()),
+                      dtype=torch.uint8, device=x.device)
+    _ALL_GATHER(out, acc.contiguous().view(torch.uint8).reshape(1, -1),
+                group=group)
+    return out.view(x.dtype).reshape(-1)[:x.numel()].reshape(x.shape)
+
+
+class _SumOverModel(torch.autograd.Function):
+    """Forward: the sum of every rank's ``x`` in rank order, in ``x``'s
+    dtype (the reference's ``psum`` over ``model``;
+    :func:`_rank_order_sum`). Backward: the identity (the sum's consumers
+    compute alike on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        if dist.get_world_size(group) == 1:
+            return x.clone()
+        return _rank_order_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _FromReplicated(torch.autograd.Function):
+    """Forward: the identity on an input every rank holds alike.
+    Backward: its gradient summed over the group (each rank's is the part
+    through its own shard)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _BlockOfReplicated(torch.autograd.Function):
+    """Forward: this rank's block along ``dim`` of a value every rank
+    holds alike (an even split, in rank order). Backward: every rank's
+    block of the gradient gathered along ``dim`` (the whole value's
+    gradient: each rank's is its block's)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        n = dist.get_world_size(group)
+        k = x.shape[dim] // n
+        ctx.dim, ctx.group = dim, group
+        return x.narrow(dim, dist.get_rank(group) * k, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_cat(g.contiguous(), ctx.group, ctx.dim), None, None
+
+
+def block_of_replicated(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """:class:`_BlockOfReplicated` of ``x`` along ``dim`` over ``group``."""
+    return _BlockOfReplicated.apply(x, dim, group)
+
+
+def sum_over_model(x: torch.Tensor, group) -> torch.Tensor:
+    """:class:`_SumOverModel` of ``x`` over ``group``."""
+    return _SumOverModel.apply(x, group)
+
+
+def from_replicated(x: torch.Tensor, group) -> torch.Tensor:
+    """:class:`_FromReplicated` of ``x`` over ``group``."""
+    return _FromReplicated.apply(x, group)
+
+
+def gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` concatenated along ``dim`` in rank
+    order (no gradient)."""
+    return torch.cat(_gather_list(x, group), dim=dim)
+
+
+def max_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``group`` (a new tensor, no
+    gradient)."""
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out

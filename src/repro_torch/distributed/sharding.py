@@ -23,9 +23,18 @@ major one, as jax splits it).
 Parameter shardings (`param_shardings`) describe TP over ``model`` ×
 FSDP/ZeRO over ``data``; optimizer state follows parameters. The port
 stores parameters and optimizer state with these placements
-(``repro_torch.launch.steps``) but computes with each leaf gathered at its
-use, so ``constrain`` redistributes only a ``DTensor`` and is the
-identity on the plain tensors the models compute on.
+(``repro_torch.launch.steps``) and computes on local shards: a leaf that
+the rules shard over ``model`` along one of :data:`TP_AXES` is gathered
+over the data axes only, and the models run their products on this
+rank's block of it, with explicit sums over ``model``
+(``repro_torch.distributed.collectives``). The steps say so by entering
+:func:`local_shards`; inside it :func:`model_shard` gives a model
+function the mesh's ``model`` group, and a leaf the rules shard over
+``model`` that comes whole raises. Outside it (one process, or a caller
+of a model function that holds whole leaves) the models compute whole.
+Every other leaf is gathered whole. ``constrain`` redistributes only a
+``DTensor`` and is the identity on the plain tensors the models compute
+on.
 """
 from __future__ import annotations
 
@@ -229,6 +238,108 @@ def activate_rules(rules: Rules):
 
 def current_rules() -> Optional[Rules]:
     return _ACTIVE.get()
+
+
+_LOCAL: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "local_shards", default=False)
+
+
+@contextlib.contextmanager
+def local_shards():
+    """Inside: the caller passes every leaf that the active rules shard
+    over ``model`` along one of :data:`TP_AXES` as this model rank's block
+    (the steps do), and the models compute on those blocks."""
+    tok = _LOCAL.set(True)
+    try:
+        yield
+    finally:
+        _LOCAL.reset(tok)
+
+
+def on_local_shards() -> bool:
+    """Whether a :func:`local_shards` context is active."""
+    return _LOCAL.get()
+
+
+# logical axes whose ``model`` placement a step keeps: the models compute
+# on this rank's block of such a leaf (tensor and expert parallelism)
+TP_AXES = frozenset({"heads", "kv_heads", "ff", "inner", "experts"})
+
+
+def axes_of(entry: MeshAxes) -> Tuple[str, ...]:
+    """The mesh axes of a spec entry (``None``, a name or a tuple)."""
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelShard:
+    """This rank's place on the ``model`` axis of the active rules' mesh:
+    its process ``group``, the axis ``size`` and this rank's index."""
+    rules: Rules
+    group: Any
+    size: int
+    rank: int
+
+    def sharded(self, logical: str, n: int) -> bool:
+        """Whether the rules shard a stored dimension of ``n`` along
+        ``logical`` over ``model`` (as ``param_shardings`` resolves it)."""
+        return "model" in axes_of(
+            self.rules.resolve(logical, n, allow_uneven=False))
+
+    def block(self, n: int) -> Tuple[int, int]:
+        """This rank's ``[lo, hi)`` of a dimension of ``n`` split evenly."""
+        if n % self.size:
+            raise ValueError(f"a dimension of {n} does not split over "
+                             f"{self.size} model ranks")
+        k = n // self.size
+        return self.rank * k, (self.rank + 1) * k
+
+    def check(self, w, dim: int, n: int) -> None:
+        """Raise unless the leaf ``w``, whose dimension ``dim`` is ``n`` in
+        all, comes as this rank's block of it."""
+        lo, hi = self.block(n)
+        if w.shape[dim] != hi - lo:
+            raise ValueError(f"a leaf of {w.shape[dim]} along dim {dim} "
+                             f"where this model rank computes on its "
+                             f"{hi - lo} of {n}")
+
+
+def model_shard() -> Optional[ModelShard]:
+    """The active rules' :class:`ModelShard` inside :func:`local_shards`;
+    None outside it, where no rules are active, their mesh is a plain
+    mapping (no process group) or its ``model`` axis has one rank."""
+    rules = _ACTIVE.get()
+    if (not _LOCAL.get() or rules is None
+            or isinstance(rules.mesh, Mapping)):
+        return None
+    size = rules.shape.get("model", 1)
+    if size <= 1:
+        return None
+    mesh = rules.mesh
+    return ModelShard(rules, mesh.get_group("model"), size,
+                      mesh.get_local_rank("model"))
+
+
+def mesh_index(mesh: Any, axes: Sequence[str]) -> Tuple[int, int]:
+    """(index, count) of this rank's block over the mesh axes ``axes``
+    (mesh order, the first the major one), as DTensor splits a dimension
+    over several mesh dims."""
+    idx, n = 0, 1
+    for a in axes:
+        k = mesh.size(mesh.mesh_dim_names.index(a))
+        idx, n = idx * k + mesh.get_local_rank(a), n * k
+    return idx, n
+
+
+def local_block(x, dim: int, axes: MeshAxes, mesh: Any):
+    """This rank's block along ``dim`` of ``x`` (held whole on every rank
+    of ``axes``) when the spec entry ``axes`` shards that dimension."""
+    axes = axes_of(axes)
+    if not axes:
+        return x
+    idx, n = mesh_index(mesh, axes)
+    k = x.shape[dim] // n
+    return x.narrow(dim, idx * k, k)
 
 
 def constrain(x, *logical_axes: Optional[str]):

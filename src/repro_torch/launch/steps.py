@@ -8,35 +8,47 @@ meta tensors (shapes and dtypes, no allocation: the counterpart of
 (cfg, shape, mesh) cell with the reference's rule choices.
 
 On a mesh (parameters stored as DTensors by ``param_shardings``) the
-steps gather each leaf at its use and compute on plain tensors: storage
-is ZeRO-3/FSDP-style, compute is redundant over ``model`` (tensor-parallel
-compute is not ported). The MoE expert leaves are the exception: where
-the models take their expert-parallel path they are gathered over the
-data axes only and stay sharded over ``model`` (each model rank computes
-its experts, ``repro_torch.models.moe``), as the reference gathers them
-over fsdp inside its ``shard_map``. A train step runs this rank's rows of
-the batch (the ``batch`` rule's data axes) under the rules, averages the
-gradients over those axes explicitly (DTensor would not: the replicated
-gradients differ between data ranks that ran different rows), and
-updates each leaf in its optimizer-state layout before redistributing
-the new parameter to its own; an expert leaf's gradient is its model
-rank's slice and takes the same mean. Prefill and serve gather the batch
-and compute it whole on every rank; the MoE's dispatch groups are still
-one data shard's tokens, as the reference's.
+steps compute on local shards, as the reference's jitted cells compute
+each product on its shards. A leaf whose spec shards a dimension over
+``model`` along one of ``sharding.TP_AXES`` (``heads``, ``kv_heads``,
+``ff``, ``inner``, ``experts``) is gathered over the data axes only, the
+reference's FSDP, and the models run on this model rank's block of it
+(tensor and expert parallelism: ``repro_torch.models``, inside
+``sharding.local_shards``); it is never gathered over ``model`` in a
+step. Every other leaf is gathered whole
+(those the rules shard over ``head_dim`` among them: their attention
+computes whole). Gathers and relayouts go through c10d calls in rank
+order (``_redistribute``), not DTensor's collectives.
+
+A train step runs this rank's rows of the batch (the ``batch`` rule's
+data axes) under the rules, averages the gradients over those axes
+explicitly (DTensor would not: the replicated gradients differ between
+data ranks that ran different rows), and updates each leaf in its
+optimizer-state layout before redistributing the new parameter to its
+own; a model-sharded leaf's gradient is its model rank's slice and takes
+the same mean, and the global norm adds those slices' squares over
+``model``. Prefill and serve run this data rank's rows too, their MoE
+dispatch groups the data shards' rows as the reference's; the cache
+stays DTensors placed by ``lm.cache_shardings`` and is never gathered
+(each rank reads and writes its own block), and the logits come out as
+this rank's (``batch``, ``vocab``) block.
 """
 from __future__ import annotations
 
-import re
 from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import SHAPES, ArchConfig, InputShape
+from repro_torch.distributed.collectives import gather_cat
 from repro_torch.distributed.sharding import (
+    TP_AXES,
     NamedSharding,
     Rules,
+    _leaf_logical_axes,
     activate_rules,
     current_rules,
+    local_shards,
     param_shardings,
     placements,
 )
@@ -124,47 +136,107 @@ def distribute(x: torch.Tensor, mesh, place) -> Any:
     return rep.redistribute(mesh, tuple(place))
 
 
+def _shard_axes(place: tuple, dim: int) -> list:
+    """The mesh dims (in mesh order) whose placement shards tensor dim
+    ``dim``."""
+    return [i for i, p in enumerate(place) if p.is_shard(dim)]
+
+
+def _redistribute(x: torch.Tensor, like, src: tuple,
+                  dst: tuple) -> torch.Tensor:
+    """This rank's shard, in placements ``dst``, of the global tensor shaped
+    as the DTensor ``like`` whose shard in placements ``src`` is ``x``
+    (even shards). A tensor dim whose mesh dims differ is gathered over
+    the mesh dims ``src`` splits it over and ``dst`` does not (c10d
+    all-gathers in rank order, the inner mesh dim first; a mesh dim of
+    one rank moves nothing), then sliced over those ``dst`` splits it
+    over and ``src`` did not."""
+    mesh = like.device_mesh
+    names = mesh.mesh_dim_names
+    for d in range(x.ndim):
+        have, want = _shard_axes(src, d), _shard_axes(dst, d)
+        keep = 0
+        while (keep < min(len(have), len(want))
+               and have[keep] == want[keep]):
+            keep += 1
+        for i in reversed(have[keep:]):
+            if mesh.size(i) > 1:
+                x = gather_cat(x, mesh.get_group(names[i]), d)
+        for i in want[keep:]:
+            n = mesh.size(i)
+            k = x.shape[d] // n
+            x = x.narrow(d, mesh.get_local_rank(names[i]) * k, k)
+    return x.contiguous()
+
+
+def _even(x) -> bool:
+    """Whether every dim of the DTensor ``x`` splits evenly."""
+    mesh = x.device_mesh
+    for d, size in enumerate(x.shape):
+        n = 1
+        for i in _shard_axes(x.placements, d):
+            n *= mesh.size(i)
+        if size % n:
+            return False
+    return True
+
+
 def gather(tree: Any) -> Any:
-    """``tree`` with every DTensor leaf gathered into a plain tensor (a
-    collective on every rank of its mesh)."""
-    return tree_map(lambda x: x.full_tensor() if _is_dtensor(x) else x, tree)
+    """``tree`` with every DTensor leaf gathered into a plain tensor (c10d
+    collectives on every rank of its mesh; even shards only)."""
+    from torch.distributed.tensor import Replicate
 
-
-_EXPERT_LEAF = re.compile(r"we_(gate|up|down)$")
+    def one(x):
+        if not _is_dtensor(x):
+            return x
+        if not _even(x):
+            raise ValueError(f"a DTensor of {tuple(x.shape)} in uneven "
+                             f"shards {x.placements}: gather takes even "
+                             f"shards")
+        return _redistribute(x.to_local(), x, tuple(x.placements),
+                             (Replicate(),) * x.device_mesh.ndim)
+    return tree_map(one, tree)
 
 
 def _compute_placements(path: str, x) -> tuple:
     """The placements a step computes the DTensor leaf ``x`` at ``path``
-    in: ``Replicate()`` on every mesh dim, except that a MoE expert leaf
-    keeps its ``model`` placement (its model rank's experts, where the
-    rules shard them)."""
+    in: its ``model`` placement where that shards a dimension along one of
+    ``TP_AXES`` (this model rank's block), ``Replicate()`` elsewhere."""
     from torch.distributed.tensor import Replicate
     names = x.device_mesh.mesh_dim_names or ()
-    keep = _EXPERT_LEAF.search(path.split("/")[-1]) is not None
-    return tuple(pl if keep and name == "model" else Replicate()
+    logical = _leaf_logical_axes(path, x.ndim)
+
+    def keep(name, pl):
+        return (name == "model" and pl.is_shard()
+                and logical[pl.dim] in TP_AXES)
+    return tuple(pl if keep(name, pl) else Replicate()
                  for name, pl in zip(names, x.placements))
 
 
 def gather_at_use(params: Any) -> Any:
     """``params`` as a step computes with them (module docstring): each
-    DTensor leaf gathered whole, an expert leaf gathered over the data
-    axes into its model rank's block."""
+    DTensor leaf in its compute placements, as a plain tensor."""
     def one(path, x):
         if not _is_dtensor(x):
             return x
-        return x.redistribute(x.device_mesh,
-                              _compute_placements(path, x)).to_local()
+        return _redistribute(x.to_local(), x, tuple(x.placements),
+                             _compute_placements(path, x))
     return tree_map_with_path(one, params)
 
 
-def _relayout(x: torch.Tensor, like, src: tuple, dst: tuple) -> torch.Tensor:
-    """This rank's shard, in placements ``dst``, of the global tensor shaped
-    as the DTensor ``like`` whose shard in placements ``src`` is ``x``
-    (a local slice: ``src`` replicates every dim ``dst`` shards)."""
+def _place_local(x: torch.Tensor, sharding: NamedSharding,
+                 shape) -> Any:
+    """The DTensor placed by ``sharding`` of global ``shape`` whose shard
+    on this rank is ``x``."""
     from torch.distributed.tensor import DTensor
-    placed = DTensor.from_local(x, like.device_mesh, src, run_check=False,
-                                shape=like.shape, stride=like.stride())
-    return placed.redistribute(like.device_mesh, dst).to_local()
+    stride, acc = [], 1
+    for size in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= size
+    return DTensor.from_local(x.contiguous(), sharding.mesh,
+                              sharding.placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=tuple(reversed(stride)))
 
 
 def _rows(x: torch.Tensor, mesh, rules: Rules) -> torch.Tensor:
@@ -173,6 +245,19 @@ def _rows(x: torch.Tensor, mesh, rules: Rules) -> torch.Tensor:
         return x.to_local()
     sh = rules.sharding(("batch",) + (None,) * (x.ndim - 1), x.shape)
     return distribute(x, mesh, sh.placements).to_local()
+
+
+def _row_split(tok, mesh, rules: Rules):
+    """The mesh dims a batch's rows split over (by the tokens' placement,
+    or the ``batch`` rule for a plain tensor) and their product."""
+    row_place = (tok.placements if _is_dtensor(tok) else rules.sharding(
+        ("batch", None), tok.shape).placements)
+    split = [mesh.mesh_dim_names[i] for i, p in enumerate(row_place)
+             if p.is_shard(0)]
+    n = 1
+    for axis in split:
+        n *= mesh.size(mesh.mesh_dim_names.index(axis))
+    return split, n
 
 
 # --------------------------------------------------------------------------
@@ -239,31 +324,22 @@ def make_train_step(cfg: ArchConfig, opt: AdamWConfig,
 def _mesh_train_step(cfg, opt, microbatches, params, opt_state, batch):
     """The train step on DTensor parameters and optimizer state (module
     docstring): the same numbers as one rank's step on the whole batch,
-    up to the order of the gradient sums (and, for a MoE, up to its
-    dispatch groups, which are the data shards' rows, and the bf16 sum of
-    its expert-parallel outputs)."""
+    up to the order of the sums over ``model`` and of the gradient sums
+    (and, for a MoE, up to its dispatch groups, which are the data shards'
+    rows, and the bf16 sum of its expert-parallel outputs)."""
     import torch.distributed as dist
 
     leaves = tree_leaves(params)
     mesh = leaves[0].device_mesh
     rules = current_rules() or Rules(mesh)
     local = {k: _rows(v, mesh, rules) for k, v in batch.items()}
-
-    # the mesh dims the rows were split over
-    tok = batch["tokens"]
-    row_place = (tok.placements if _is_dtensor(tok) else rules.sharding(
-        ("batch", None), tok.shape).placements)
-    split = [mesh.mesh_dim_names[i] for i, p in enumerate(row_place)
-             if p.is_shard(0)]
-    n = 1
-    for axis in split:
-        n *= mesh.size(mesh.mesh_dim_names.index(axis))
+    split, n = _row_split(batch["tokens"], mesh, rules)
 
     places = []
     tree_map_with_path(lambda path, x: places.append(
         _compute_placements(path, x)), params)
     full = gather_at_use(params)
-    with activate_rules(rules), token_shards(n):
+    with activate_rules(rules), local_shards(), token_shards(n):
         loss, grads = _loss_and_grads(cfg, microbatches, full, local)
     grads = [g.contiguous() for g in grads]
 
@@ -291,9 +367,9 @@ def _mesh_train_step(cfg, opt, microbatches, params, opt_state, batch):
     # each leaf updated in its optimizer-state layout, then redistributed
     # to its parameter layout
     ms, vs = tree_leaves(opt_state.m), tree_leaves(opt_state.v)
-    p_sl = [_relayout(f, p, pl, m.placements)
+    p_sl = [_redistribute(f, p, pl, tuple(m.placements))
             for f, p, pl, m in zip(tree_leaves(full), leaves, places, ms)]
-    g_sl = [_relayout(g, p, pl, m.placements)
+    g_sl = [_redistribute(g, p, pl, tuple(m.placements))
             for g, p, pl, m in zip(grads, leaves, places, ms)]
     step = opt_state.step
     if _is_dtensor(step):
@@ -303,30 +379,106 @@ def _mesh_train_step(cfg, opt, microbatches, params, opt_state, batch):
         AdamWState(step, [m.to_local() for m in ms],
                    [v.to_local() for v in vs]), gnorm=gnorm)
     for p, new, m in zip(leaves, p_sl, ms):
-        p.to_local().copy_(_relayout(new, p, m.placements, p.placements))
+        p.to_local().copy_(_redistribute(new, p, tuple(m.placements),
+                                         tuple(p.placements)))
     opt_state = AdamWState(step=local_state.step, m=opt_state.m,
                            v=opt_state.v)
     return params, opt_state, {"loss": loss, "step": opt_state.step}
 
 
+def _mesh_of(params):
+    """The mesh of DTensor ``params``, or None (plain tensors)."""
+    first = tree_leaves(params)[0]
+    return first.device_mesh if _is_dtensor(first) else None
+
+
+def _placed_cache(cfg, shard, b: int, max_len: int, cache):
+    """``cache`` (this rank's blocks of a (b, max_len) cache) as the
+    DTensors its shardings ``shard`` place."""
+    return tree_map(lambda c, sh, m: _place_local(c, sh, m.shape), cache,
+                    shard, lm.cache_shapes(cfg, b, max_len))
+
+
+def _placed_logits(cfg, rules: Rules, b: int, logits):
+    return _place_local(logits, rules.sharding(("batch", "vocab"),
+                                               (b, cfg.vocab)),
+                        (b, cfg.vocab))
+
+
 def make_prefill_step(cfg: ArchConfig):
+    """Full-context forward that builds the decode cache. On DTensor
+    parameters see the module docstring: this data rank's rows, the
+    cache and the logits as DTensors of their rank's blocks."""
+
     def prefill_step(params, batch):
-        params, batch = gather_at_use(params), gather(batch)
-        logits, cache, clen = lm.prefill(cfg, params, batch["tokens"],
-                                         batch.get("prefix_embeds"))
-        return {"logits": logits, "cache": cache, "cache_len": clen}
+        mesh = _mesh_of(params)
+        if mesh is None:
+            batch = gather(batch)
+            logits, cache, clen = lm.prefill(cfg, params, batch["tokens"],
+                                             batch.get("prefix_embeds"))
+            return {"logits": logits, "cache": cache, "cache_len": clen}
+        rules = current_rules() or Rules(mesh)
+        local = {k: _rows(v, mesh, rules) for k, v in batch.items()}
+        _, n = _row_split(batch["tokens"], mesh, rules)
+        b = batch["tokens"].shape[0]
+        s_total = batch["tokens"].shape[1] + cfg.prefix_len * (
+            "prefix_embeds" in batch)
+        shard = lm.cache_shardings(cfg, rules, b, s_total)
+        with activate_rules(rules), local_shards(), token_shards(n):
+            logits, cache, clen = lm.prefill(
+                cfg, gather_at_use(params), local["tokens"],
+                local.get("prefix_embeds"), shardings=shard)
+        return {"logits": _placed_logits(cfg, rules, b, logits),
+                "cache": _placed_cache(cfg, shard, b, s_total, cache),
+                "cache_len": clen}
 
     return prefill_step
 
 
+def _kv_len(cfg: ArchConfig, cache) -> int:
+    """The KV cache's length (1 where the arch has no attention)."""
+    for blk, kind in zip(cache, lm.block_pattern(cfg)):
+        if kind == "attn":
+            return int(blk["k"].shape[2])
+    return 1
+
+
 def make_serve_step(cfg: ArchConfig):
-    """One-token decode against a seq_len KV/state cache."""
+    """One-token decode against a seq_len KV/state cache. On DTensor
+    parameters see the module docstring: the cache (DTensors, or plain
+    tensors every rank holds alike) is read and written in this rank's
+    block."""
 
     def serve_step(params, batch):
-        params, batch = gather_at_use(params), gather(batch)
-        logits, cache = lm.decode_step(cfg, params, batch["cache"],
-                                       batch["cache_len"], batch["tokens"])
-        return {"logits": logits, "cache": cache}
+        mesh = _mesh_of(params)
+        if mesh is None:
+            batch = gather(batch)
+            logits, cache = lm.decode_step(cfg, params, batch["cache"],
+                                           batch["cache_len"],
+                                           batch["tokens"])
+            return {"logits": logits, "cache": cache}
+        rules = current_rules() or Rules(mesh)
+        tokens = _rows(batch["tokens"], mesh, rules)
+        _, n = _row_split(batch["tokens"], mesh, rules)
+        b = batch["tokens"].shape[0]
+        max_len = _kv_len(cfg, batch["cache"])
+        shard = lm.cache_shardings(cfg, rules, b, max_len)
+
+        def block(c, sh):
+            if _is_dtensor(c):
+                return _redistribute(c.to_local(), c, tuple(c.placements),
+                                     sh.placements)
+            return distribute(c, mesh, sh.placements).to_local()
+
+        cache = tree_map(block, batch["cache"], shard)
+        clen = batch["cache_len"]
+        clen = clen.to_local() if _is_dtensor(clen) else clen
+        with activate_rules(rules), local_shards(), token_shards(n):
+            logits, cache = lm.decode_step(cfg, gather_at_use(params),
+                                           cache, clen, tokens,
+                                           shardings=shard)
+        return {"logits": _placed_logits(cfg, rules, b, logits),
+                "cache": _placed_cache(cfg, shard, b, max_len, cache)}
 
     return serve_step
 

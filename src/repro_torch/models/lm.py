@@ -14,12 +14,21 @@ True and False are the same loop. ``cfg.remat`` checkpoints each block
 reference's activation placements (identity on plain tensors), and
 ``cache_shardings`` places the decode cache by the sharding rules.
 
+Inside ``sharding.local_shards`` on a mesh whose rules shard ``model``
+the blocks compute on this rank's shards (``layers``, ``ssm``, ``moe``),
+the logits are this rank's ``vocab`` block (the replicated unembed
+sliced, as GSPMD's back-propagated sharding of the reference's
+constrained logits) and ``lm_loss`` is a vocab-parallel cross entropy.
+``prefill`` and ``decode_step`` take the cache's shardings and then
+return, and read, this rank's block of every cache leaf.
+
 ``[audio]``/``[vlm]`` archs prepend precomputed ``prefix_embeds`` (the
 modality-frontend stub) to the token embeddings.
 """
 from __future__ import annotations
 
 import contextvars
+import dataclasses
 import functools
 from typing import Dict, Optional, Tuple
 
@@ -29,7 +38,18 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.trainer import resolve_device
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.collectives import (
+    block_of_replicated,
+    from_replicated,
+    max_over,
+    sum_over_model,
+)
+from repro_torch.distributed.sharding import (
+    constrain,
+    current_rules,
+    local_block,
+    model_shard,
+)
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
@@ -143,7 +163,8 @@ def _loop_blocks(cfg: ArchConfig, body, carry, blocks_xs, remat=True):
     A checkpointed block runs in a copy of the caller's context: its
     recompute runs where the backward does, on CUDA the autograd engine's
     device thread, which does not inherit the caller's context variables
-    (the active sharding rules, the MoE's ``token_shards``)."""
+    (the active sharding rules, ``local_shards``, the MoE's
+    ``token_shards``)."""
     nb = tree_leaves(blocks_xs)[0].shape[0]
     remat = remat and cfg.remat and torch.is_grad_enabled()
     kw = {}
@@ -179,7 +200,7 @@ def _ffn(cfg: ArchConfig, pos: int, p: Params,
         if _uses_moe(cfg, pos):
             h = h + moe_mod.moe_block(cfg, p["ffn"], x)
         else:
-            h = h + mlp_block(p["ffn"], x, cfg.bf16_reduce)
+            h = h + mlp_block(p["ffn"], x, cfg.bf16_reduce, cfg.d_ff)
     return h
 
 
@@ -217,9 +238,29 @@ def _unembed(params: Params) -> torch.Tensor:
     return params["embed"].T if unembed is None else unembed
 
 
+def _vocab_tp(cfg: ArchConfig):
+    """The model shard when the rules split the logits' ``vocab`` over
+    ``model``, else None."""
+    ms = model_shard()
+    if ms is not None and ms.sharded("vocab", cfg.vocab):
+        return ms
+    return None
+
+
+def _logits(cfg: ArchConfig, params: Params, h: torch.Tensor):
+    """``h @ unembed``: this rank's vocab block of the logits on a model
+    shard (module docstring)."""
+    ms = _vocab_tp(cfg)
+    if ms is None:
+        return h @ _unembed(params)
+    w = block_of_replicated(_unembed(params), 1, ms.group)
+    return from_replicated(h, ms.group) @ w
+
+
 def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S_total, V)."""
+    """tokens (B, S) -> logits (B, S_total, V), or this rank's vocab block
+    of them on a model shard."""
     pat = block_pattern(cfg)
     h, positions = _embed(params, tokens, prefix_embeds)
 
@@ -230,7 +271,7 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
 
     h, _ = _loop_blocks(cfg, body, h, params["blocks"])
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return constrain(h @ _unembed(params), "batch", "seq", "vocab")
+    return constrain(_logits(cfg, params, h), "batch", "seq", "vocab")
 
 
 def lm_loss(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
@@ -238,45 +279,80 @@ def lm_loss(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Next-token cross entropy over the token region (prefix excluded):
     the reference's max-shifted log-sum-exp, the gold logit taken with
-    ``gather`` (the same value as the reference's select-and-sum)."""
+    ``gather`` (the same value as the reference's select-and-sum). On a
+    vocab-split model shard: the max over ``model`` (detached, as ``m``
+    is), the exponentials' sum over ``model``, the gold logit from the
+    rank holding the label."""
     logits = forward(cfg, params, tokens, prefix_embeds)
     if prefix_embeds is not None:
         logits = logits[:, prefix_embeds.shape[1]:]
+    ms = _vocab_tp(cfg)
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    if ms is not None:
+        m = max_over(m.float(), ms.group).to(m.dtype)
     shifted = constrain((logits - m).float(), "batch", "seq", "vocab")
-    logz = torch.log(torch.sum(torch.exp(shifted), dim=-1))
-    gold = torch.gather(shifted, -1, labels[..., None].long())[..., 0]
+    total = torch.sum(torch.exp(shifted), dim=-1)
+    if ms is None:
+        logz = torch.log(total)
+        gold = torch.gather(shifted, -1, labels[..., None].long())[..., 0]
+        return torch.mean(logz - gold)
+    lo, hi = ms.block(cfg.vocab)
+    logz = torch.log(sum_over_model(total, ms.group))
+    rel = labels.long() - lo
+    here = (rel >= 0) & (rel < hi - lo)
+    gold = torch.gather(shifted, -1,
+                        rel.clamp(0, hi - lo - 1)[..., None])[..., 0]
+    gold = sum_over_model(torch.where(here, gold, 0.0), ms.group)
     return torch.mean(logz - gold)
 
 
 # --------------------------------------------------------------------------
 # KV / state caches, prefill, decode
 # --------------------------------------------------------------------------
-def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="meta"):
-    """The decode cache's tree: per pattern position, stacked over the
-    blocks. Meta tensors by default (shapes and dtypes only)."""
+@dataclasses.dataclass(frozen=True)
+class LeafShape:
+    """A cache leaf's shape and dtype, with no tensor behind it."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+
+def cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
+                 dtype=torch.bfloat16):
+    """The decode cache's tree of :class:`LeafShape`: per pattern
+    position, stacked over the blocks."""
     pat = block_pattern(cfg)
     nb = n_blocks(cfg)
     hd = cfg.resolved_head_dim()
     s = cfg.ssm
 
-    def leaf(shape, dt):
-        return torch.zeros(shape, dtype=dt, device=device)
-
     cache = []
     for kind in pat:
         if kind == "attn":
             shape = (nb, batch, max_len, cfg.n_kv_heads, hd)
-            cache.append({"k": leaf(shape, dtype), "v": leaf(shape, dtype)})
+            cache.append({"k": LeafShape(shape, dtype),
+                          "v": LeafShape(shape, dtype)})
         else:
             conv_ch = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
             cache.append({
-                "conv": leaf((nb, batch, s.d_conv - 1, conv_ch), dtype),
-                "ssm": leaf((nb, batch, s.n_heads(cfg.d_model), s.head_dim,
-                             s.d_state), torch.float32),
+                "conv": LeafShape((nb, batch, s.d_conv - 1, conv_ch), dtype),
+                "ssm": LeafShape((nb, batch, s.n_heads(cfg.d_model),
+                                  s.head_dim, s.d_state), torch.float32),
             })
     return tuple(cache)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="meta"):
+    """The decode cache's tree: per pattern position, stacked over the
+    blocks. Meta tensors by default (shapes and dtypes only)."""
+    return tree_map(
+        lambda leaf: torch.zeros(leaf.shape, dtype=leaf.dtype,
+                                 device=device),
+        cache_shapes(cfg, batch, max_len, dtype))
 
 
 def zero_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -315,15 +391,24 @@ def cache_shardings(cfg: ArchConfig, rules, batch: int, max_len: int):
         return rules.sharding(("stack", "batch", "ssm_heads", None, None),
                               shape)
 
-    return tree_map(leaf, init_cache(cfg, batch, max_len))
+    return tree_map(leaf, cache_shapes(cfg, batch, max_len))
+
+
+def _spec(shardings, pos: int, key: str):
+    """The spec of cache leaf ``key`` at pattern position ``pos`` without
+    its stack dim, or None (one process)."""
+    return None if shardings is None else shardings[pos][key].spec[1:]
 
 
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None,
-            cache_dtype=torch.bfloat16):
+            cache_dtype=torch.bfloat16, shardings=None):
     """Full-context forward that also builds the decode cache.
 
-    Returns (last-token logits (B, V), cache, cache_len).
+    Returns (last-token logits (B, V), cache, cache_len). With
+    ``shardings`` (``cache_shardings`` of the global batch and length on
+    the active rules' mesh) the cache is this rank's block of every leaf
+    and the logits its vocab block (module docstring).
     """
     pat = block_pattern(cfg)
     h, positions = _embed(params, tokens, prefix_embeds)
@@ -337,11 +422,17 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
             if kind == "attn":
                 mix, k, v = attention_block(cfg, p["mixer"], x, positions,
                                             return_kv=True)
+                spec = _spec(shardings, pos, "k")
+                if spec is not None:        # this rank's positions
+                    mesh = current_rules().mesh
+                    k = local_block(k, 1, spec[1], mesh)
+                    v = local_block(v, 1, spec[1], mesh)
                 out_cache.append({"k": k.to(cache_dtype),
                                   "v": v.to(cache_dtype)})
             else:
                 mix, (conv_tail, state) = ssm_mod.mamba_block(
-                    cfg, p["mixer"], x, return_cache=True)
+                    cfg, p["mixer"], x, return_cache=True,
+                    conv_spec=_spec(shardings, pos, "conv"))
                 out_cache.append({"conv": conv_tail.to(cache_dtype),
                                   "ssm": state})
             hh = constrain(_ffn(cfg, pos, p, hh + mix),
@@ -350,13 +441,14 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
 
     h, cache = _loop_blocks(cfg, body, h, params["blocks"])
     h = rms_norm(h[:, -1], params["final_norm"], cfg.norm_eps)
-    return h @ _unembed(params), cache, s_total
+    return _logits(cfg, params, h), cache, s_total
 
 
 def decode_step(cfg: ArchConfig, params: Params, cache, cache_len,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, shardings=None):
     """One-token decode at position ``cache_len`` (an int). tokens (B, 1)
-    -> (logits (B, V), new cache)."""
+    -> (logits (B, V), new cache). With ``shardings`` (as ``prefill``'s)
+    ``cache`` is this rank's block of every leaf, and so is the new one."""
     pat = block_pattern(cfg)
     h = constrain(embed_lookup(params["embed"], tokens),  # (B, 1, d)
                   "batch", "seq", "embed")
@@ -370,12 +462,14 @@ def decode_step(cfg: ArchConfig, params: Params, cache, cache_len,
             c = cb[pos]
             x = rms_norm(hh, p["pre_norm"], cfg.norm_eps)
             if kind == "attn":
-                mix, k_c, v_c = attention_decode(cfg, p["mixer"], x,
-                                                 c["k"], c["v"], cache_len)
+                mix, k_c, v_c = attention_decode(
+                    cfg, p["mixer"], x, c["k"], c["v"], cache_len,
+                    _spec(shardings, pos, "k"))
                 new_cb.append({"k": k_c, "v": v_c})
             else:
                 mix, conv_c, ssm_c = ssm_mod.mamba_decode(
-                    cfg, p["mixer"], x, c["conv"], c["ssm"])
+                    cfg, p["mixer"], x, c["conv"], c["ssm"],
+                    _spec(shardings, pos, "conv"))
                 new_cb.append({"conv": conv_c, "ssm": ssm_c})
             hh = _ffn(cfg, pos, p, hh + mix)
         return hh, tuple(new_cb)
@@ -384,4 +478,4 @@ def decode_step(cfg: ArchConfig, params: Params, cache, cache_len,
     h, new_cache = _loop_blocks(cfg, body, h, (params["blocks"], cache),
                                 remat=False)
     h = rms_norm(h[:, 0], params["final_norm"], cfg.norm_eps)
-    return h @ _unembed(params), new_cache
+    return _logits(cfg, params, h), new_cache

@@ -14,8 +14,10 @@ data shard its own group, on both of its paths, and so does the port:
 * **The local path** (no rules, one ``model`` rank, experts that do not
   divide over ``model``, or the pure-DP rules): ``_dispatch_groups``
   groups, one per data shard of the step's batch. A caller that already
-  computes on its data rank's rows (the mesh train step) says so with
-  :func:`token_shards`, and its rows are then its own groups.
+  computes on its data rank's rows (the mesh steps) says so with
+  :func:`token_shards`, and its rows are then its own groups. Expert
+  leaves that come as a model rank's ``ff`` block (the rules split
+  ``ff`` where the experts do not divide over ``model``) raise.
 * **Expert parallelism** (``_moe_ep``, the reference's ``_moe_shardmap``),
   taken on the reference's condition: rules active, ``model`` > 1, the
   experts dividing over it and the ``experts`` axis resolving. Each model
@@ -31,26 +33,39 @@ data shard its own group, on both of its paths, and so does the port:
   experts' part), the sum's backward is the identity (what follows it is
   computed alike on every model rank), and the casts round the cotangent
   to bf16 as jax's do. The dense residual sits outside the sum, and so
-  does its gradient. A caller holding the whole batch (prefill and serve
-  gather it) takes its data shard's rows first and gathers the outputs
+  does its gradient (the residual runs tensor-parallel where its ``ff``
+  splits). A caller holding the whole batch (a direct call under the
+  rules) takes its data shard's rows first and gathers the outputs
   over the data axes after (backward: the rows' slice, a gather of the
   input's gradient, and the weights' gradients summed over the data
   shards, so every rank ends with the whole batch's).
 
-The ``expert_groups``/``experts`` ``constrain`` sites are the reference's;
-on the plain tensors the models compute on they are the identity.
+The autograd pairs are ``repro_torch.distributed.collectives``'s, shared
+with tensor parallelism. The ``expert_groups``/``experts`` ``constrain``
+sites are the reference's; on the plain tensors the models compute on
+they are the identity.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import constrain, current_rules
+from repro_torch.distributed import collectives
+from repro_torch.distributed.collectives import (
+    _FromReplicated,
+    _SumOverModel,
+)
+from repro_torch.distributed.sharding import (
+    constrain,
+    current_rules,
+    model_shard,
+    on_local_shards,
+)
 from repro_torch.models.layers import Draw, init_mlp, mlp_block
 
 Params = Dict[str, torch.Tensor]
@@ -182,59 +197,9 @@ def _local_expert_pass(cfg: ArchConfig, x: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# collectives with the backward expert parallelism needs
+# the data shards' rows (the model axis's pairs are shared with tensor
+# parallelism: ``repro_torch.distributed.collectives``)
 # --------------------------------------------------------------------------
-def _gather_list(x: torch.Tensor, group) -> List[torch.Tensor]:
-    """Every rank's ``x`` of ``group``, in group-rank order (bf16 goes as
-    its bytes, which every backend carries)."""
-    import torch.distributed as dist
-    n = dist.get_world_size(group)
-    bits = x.contiguous()
-    if x.dtype == torch.bfloat16:
-        bits = bits.view(torch.uint8)
-    out = [torch.empty_like(bits) for _ in range(n)]
-    dist.all_gather(out, bits, group=group)
-    if x.dtype == torch.bfloat16:
-        out = [o.view(torch.bfloat16) for o in out]
-    return out
-
-
-class _SumOverModel(torch.autograd.Function):
-    """Forward: the sum of every model rank's ``x`` in rank order, in
-    ``x``'s dtype (the reference's ``psum`` over ``model``). Backward: the
-    identity (the sum's consumers compute alike on every model rank)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        parts = _gather_list(x, group)
-        acc = parts[0]
-        for part in parts[1:]:
-            acc = acc + part
-        return acc
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _FromReplicated(torch.autograd.Function):
-    """Forward: the identity on an input every model rank holds alike.
-    Backward: its gradient summed over ``model`` (each rank's is the part
-    through its own experts)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        import torch.distributed as dist
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
 def _data_groups(mesh, axes: Sequence[str]):
     """(index, [(group, size), ...]) of this rank's data shard over
     ``axes`` (mesh order, the first the major one), the groups inner
@@ -250,7 +215,7 @@ def _data_groups(mesh, axes: Sequence[str]):
 
 def _gather_rows(x: torch.Tensor, groups) -> torch.Tensor:
     for g, n in groups:
-        x = torch.cat(_gather_list(x, g), dim=0) if n > 1 else x
+        x = collectives.gather_cat(x, g, 0) if n > 1 else x
     return x
 
 
@@ -287,14 +252,14 @@ class _GatherRows(torch.autograd.Function):
 
 def _experts_here(w: torch.Tensor, e: int, e_loc: int,
                   mi: int) -> torch.Tensor:
-    """This model rank's expert block of an expert leaf: as it comes when
-    the caller kept it sharded, sliced when it holds all ``e`` experts."""
-    if w.shape[0] == e_loc:
-        return w
-    if w.shape[0] != e:
-        raise ValueError(f"an expert leaf of {w.shape[0]} experts: neither "
-                         f"all {e} nor a model rank's {e_loc}")
-    return w[mi * e_loc:(mi + 1) * e_loc]
+    """This model rank's expert block of an expert leaf: as it comes
+    inside ``local_shards`` (the caller passes this rank's block), else
+    sliced out of all ``e`` experts."""
+    want = e_loc if on_local_shards() else e
+    if w.shape[0] != want:
+        raise ValueError(f"an expert leaf of {w.shape[0]} experts where "
+                         f"{want} come")
+    return w if want == e_loc else w[mi * e_loc:(mi + 1) * e_loc]
 
 
 def _moe_ep(cfg: ArchConfig, p: Params, x: torch.Tensor,
@@ -337,7 +302,8 @@ def _moe_ep(cfg: ArchConfig, p: Params, x: torch.Tensor,
         out = _GatherRows.apply(out, idx, groups)
     if moe.dense_residual:
         out = out + mlp_block(p["residual"], x.reshape(b * s, d),
-                              cfg.bf16_reduce).reshape(b, s, d)
+                              cfg.bf16_reduce,
+                              moe.dense_residual_ff).reshape(b, s, d)
     return out
 
 
@@ -380,6 +346,11 @@ def moe_block(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     buf = constrain(buf, "expert_groups", "experts", None, None)
 
     # --- expert GEMMs ---
+    ms = model_shard()
+    if ms is not None and ms.sharded("ff", cfg.d_ff):
+        raise ValueError(f"{e} experts do not split over {ms.size} model "
+                         f"ranks: the local path runs whole experts, not "
+                         f"their ff blocks")
     h = F.silu(torch.einsum("gecd,edf->gecf", buf, p["we_gate"]))
     h = h * torch.einsum("gecd,edf->gecf", buf, p["we_up"])
     h = torch.einsum("gecf,efd->gecd", h, p["we_down"])        # (G, E, C, d)
@@ -394,5 +365,6 @@ def moe_block(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     out = out.reshape(grp, tg, k, d).sum(2)                    # (G, Tg, d)
 
     if moe.dense_residual:
-        out = out + mlp_block(p["residual"], xf, cfg.bf16_reduce)
+        out = out + mlp_block(p["residual"], xf, cfg.bf16_reduce,
+                              moe.dense_residual_ff)
     return out.reshape(b, s, d)

@@ -204,7 +204,8 @@ def test_cli_writes_records_with_the_reference_keys(tmp_path):
     t = rec["roofline"]
     for k in ("t_compute", "t_memory", "t_collective", "roofline_frac"):
         assert t[k] >= 0 and t[k] == t[k] and t[k] != float("inf")
-    assert t["bottleneck"] == "collective"     # every token gathers leaves
+    # the token reads this rank's block of the cache and gathers no leaf
+    assert t["bottleneck"] == "memory"
 
 
 def test_cli_records_a_failing_cell_and_exits_1(tmp_path):

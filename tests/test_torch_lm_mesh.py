@@ -12,9 +12,11 @@ the CPU as a ``(data=2, model=2)`` ``DeviceMesh``, against one process.
 * ``build_cell`` on the same group, qwen3 smoke with ``n_heads=4,
   n_kv_heads=2`` (the reference's multi-device LM cells): a train cell's
   two steps against one process's steps (the same tolerances), and a
-  decode cell's logits and cache equal to one process's serve step bit
-  for bit (every rank computes the whole step), placed by the cell's
-  output shardings.
+  decode cell's logits within 2e-6 of their largest entry of one
+  process's serve step (the cell computes on local shards: the
+  row-parallel partials are summed over ``model`` in another order) and
+  its cache equal to it bit for bit, placed by the cell's output
+  shardings.
 * ``constrain`` redistributes a DTensor by the active rules.
 * A checkpointed mesh run resumes on the mesh with its bits (rank 0
   writes the gathered tree; every rank restores and re-places it).
@@ -318,9 +320,14 @@ def test_build_cell_train_runs_on_the_group(ranks):
 
 
 def test_build_cell_decode_runs_on_the_group(ranks):
-    """The decode cell's logits and cache equal one process's serve step
-    bit for bit, placed by the cell's output shardings (logits over
-    ``batch`` and ``vocab``); serving replicates parameters over data."""
+    """The decode cell's logits equal one process's serve step within
+    2e-6 of their largest entry, and its cache bit for bit, placed by the
+    cell's output shardings (logits over ``batch`` and ``vocab``); serving
+    replicates parameters over data. The cell computes on local shards:
+    each row-parallel product's partials are summed over ``model``, an
+    f32 sum in another order than one process's. The gap read on the
+    CPU is 4.4e-7 of the largest entry; the limit leaves 4.5 times
+    that."""
     import dataclasses
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import lm
@@ -340,7 +347,9 @@ def test_build_cell_decode_runs_on_the_group(ranks):
         d = c["decode"]
         assert d["shards"]
         assert d["logits_placements"] == [0, 1]     # Shard(0), Shard(1)
-        assert np.array_equal(d["logits"], want["logits"].numpy())
+        np.testing.assert_allclose(
+            d["logits"], want["logits"].numpy(), rtol=0,
+            atol=2e-6 * float(want["logits"].abs().max()))
         for g, w in zip(tree_leaves(d["cache"]), tree_leaves(want["cache"])):
             assert np.array_equal(g, w.float().numpy())
 

@@ -5,7 +5,7 @@ arch with ``torch.profiler``; optionally phase 15 (LM training) and the
 LM mesh path.
 
     python3 tools/torch_lm_phase.py [--seed 0] [--train] [--no-trace]
-                                    [--no-lm] [--ep] [--mesh 4]
+                                    [--no-lm] [--ep] [--tp] [--mesh 4]
 
 Prints the card's name and power limit, phase 14's lines, then one
 ``[lm-trace]`` line an arch: the forward's host wall (host clock around
@@ -16,13 +16,18 @@ phase 15 after them (``[lm-train]`` lines), ``--no-lm`` and
 ``--no-trace`` leave out phase 14 and the traces. ``--mesh 4`` runs the
 LM mesh path (``chip_smoke.lm_mesh_rank``: ``Trainer(mesh=...)`` and a
 decode cell on a ``(data=2, model=2)`` DeviceMesh against one process,
-``[lm-mesh]`` lines a rank; the mesh ``Trainer`` of smoke
-moonshot-v1-16b-a3b too, which takes expert parallelism), then phase 16's
-expert-parallel block at published width at model=4
-(``chip_smoke.ep_rank``, ``[lm-ep]`` lines a rank), on 4 ranks, NCCL
-with a card each: it needs a four-card machine (gloo ranks sharing one
-card crash in DTensor's functional all_gather on CUDA tensors). ``--ep`` runs phase 16 after phase 15 when ``--train`` is given
+both computing on local shards, ``[lm-mesh]`` lines a rank; the mesh
+``Trainer`` of smoke moonshot-v1-16b-a3b too, which takes expert
+parallelism), then phase 16's expert-parallel block at published width
+at model=4 (``chip_smoke.ep_rank``, ``[lm-ep]`` lines a rank), then
+phase 17's tensor-parallel cell for starcoder2-3b's 2-layer cut at
+``(data=1, model=4)`` (its 2 KV heads take the decode path whose
+positions are split over ``model``; ``chip_smoke.tp_rank``, ``[lm-tp]``
+lines a rank), on 4 ranks, NCCL with a card each: it needs a four-card
+machine. ``--ep`` runs phase 16 after phase 15 when ``--train`` is given
 (``[lm-ep]`` lines), else its expert-parallel block alone at model=2.
+``--tp`` runs phase 17 (qwen3-8b's and mamba2-1.3b's cuts on 2 gloo
+ranks sharing the card, ``[lm-tp]`` lines).
 Needs a CUDA device; exits non-zero without one, or if a gate fails.
 """
 from __future__ import annotations
@@ -89,6 +94,8 @@ def main() -> int:
                     help="run the LM mesh path on N (= 4) ranks")
     ap.add_argument("--ep", action="store_true",
                     help="run phase 16's expert-parallel block (2 ranks)")
+    ap.add_argument("--tp", action="store_true",
+                    help="run phase 17's tensor-parallel cells (2 ranks)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -119,12 +126,12 @@ def main() -> int:
                                         chip_smoke.EP_RANKS, "cuda",
                                         args.seed, timeout=600),
                             chip_smoke.EP_RANKS)
+    if args.tp:
+        chip_smoke.phase_lm_tp(args)
     if args.mesh:
         if args.mesh != 4:
             ap.error("the LM mesh path is a (data=2, model=2) mesh: --mesh 4")
         if torch.cuda.device_count() < 4:
-            # gloo ranks sharing one card crash (SIGSEGV) in DTensor's
-            # functional all_gather on CUDA tensors
             print("error: the LM mesh path needs four cards (NCCL, a card "
                   "a rank)", file=sys.stderr)
             return 1
@@ -138,6 +145,13 @@ def main() -> int:
         chip_smoke.ep_check(start_ranks(chip_smoke.ep_rank, 4, "cuda",
                                         args.seed, timeout=600), 4)
         print(f"[lm-ep] model_ranks=4 seconds="
+              f"{time.perf_counter() - t0:.1f}", flush=True)
+        t0 = time.perf_counter()
+        archs, shape = chip_smoke.TP_FOUR
+        chip_smoke.tp_check(start_ranks(chip_smoke.tp_rank, 4, "cuda",
+                                        args.seed, shape, archs,
+                                        timeout=600))
+        print(f"[lm-tp] model_ranks=4 seconds="
               f"{time.perf_counter() - t0:.1f}", flush=True)
     return 0
 
