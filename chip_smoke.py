@@ -5,7 +5,7 @@ main path and times the kernels.
 
     python3 chip_smoke.py [--seed 0] [--sentences-per-batch 10000]
 
-About 14-17 min on an H100, most of it in the host batching of the
+About 14-18 min on an H100, most of it in the host batching of the
 training phases and in the plain versions of phases 5 and 11.
 
 Phases (each prints one line; any failure raises and the script exits
@@ -21,7 +21,11 @@ non-zero):
               with prefetch == K3 without and K4 == K3 on concat(hot,
               got) bit for bit; K1 and K2 once more at a shape outside
               the compiled list (w_f=4, N=7), and K3 at T=6, G=4, both
-              on the runtime-shaped bodies.
+              on the runtime-shaped bodies; then K1 and K2 at the
+              quickstart and serve examples' smoke shape (d=32, w_f=2,
+              N=3) and K3 at the distributed example's (the same at T=4,
+              one rank's 16 sentences), each on the first batch of the
+              examples' cluster corpus, each launch on the runtime body.
 4. trainer  — ``TrainSession`` with ``backend="auto"`` on the card at the
               paper's width (d=128, W=5 so w_f=3, N=5, S=10,000 sentences
               per batch, 65,536-word cluster corpus, 3 batches): T=1 must
@@ -35,12 +39,13 @@ non-zero):
               through K3/K4's.
 5. timing   — each kernel on the trainer's first batch (the main path's
               shapes; for K4 the sharded run's first batch, with the
-              exchange timed apart): K3 at T=8 against its plain version
-              on the whole batch; K1, K2 and K4 on the batch's first
-              1,000 sentences (their own tile and exchange plans; the
-              plain versions loop in Python), with K2 == K1 == K3(T=1)
-              bit for bit on the whole batch (and K4 == K3 at phase 4);
-              then timed (CUDA events) on the whole batch beside its
+              exchange timed apart): each against its plain version on
+              the batch's first 1,000 sentences (their own tile and
+              exchange plans; the plain versions loop in Python; K3's on
+              the whole batch took 64.8-86.0 s on an H100), with K2 ==
+              K1 == K3(T=1) bit for bit on the whole batch (and K4 == K3
+              at phase 4); then timed (CUDA events) on the whole batch
+              beside its
               bound and the plain version's time on the sentences it
               held, in ms per launch and µs per window; one JSON line
               lists them. For K3/K4 also the batch's strict-tile share,
@@ -289,6 +294,25 @@ non-zero):
               leaves) plus 1e-4 of the leaf's largest; no DTensor functional
               collective (the data gathers of a data=1 mesh are local,
               the TP collectives c10d calls).
+18. examples — the five port examples as a user runs them, one after
+              another, each its own process on the default device (the
+              card), at their defaults: ``torch_quickstart.py`` (K2 on
+              its runtime-shaped body, d=32, W=3, N=3, 8 epochs),
+              ``torch_serve_w2v.py`` (a vocab-sharded T=1 session on K1,
+              served and hot-swapped), ``torch_lm_train_smoke.py`` (smoke
+              qwen3-8b, 20 steps, no kernel), ``torch_distributed_w2v.py``
+              (4 gloo ranks sharing the card, K3 at T=4 on each), and
+              ``torch_train_100m_w2v.py`` at ``--batches 60`` (d=128,
+              K2's compiled body, 2 prefetch threads, checkpoints at
+              batches 50 and 60; its Zipf corpus over 400,000 words is
+              only 60 x 512 sentences, so the vocabulary it builds holds
+              the words that occur, 74,279 rows), then again on its
+              checkpoint directory (resumes at 60, no kernel). Each must
+              exit 0, print its closing lines and launch the kernel of its
+              path and no other (counted in each of its processes, each
+              rank's too); one line each with its seconds, launches,
+              bodies and printed numbers. Phase 3 holds each example's
+              kernel against its plain version at the example's shape.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the repository's ``src/`` beside it, the script fails before
@@ -312,9 +336,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 peak outside the tensor cores
 ATOL, RTOL = 2e-5, 1e-4
-# phase 5 holds K1, K2 and K4 against their plain versions on this prefix
-# of the trainer's first batch (the plain versions loop in Python on the
-# host), K3 at T=8 on the whole batch
+# phase 5 holds K1-K4 against their plain versions on this prefix of the
+# trainer's first batch (the plain versions loop in Python on the host)
 PARITY_SENTENCES = 1000
 
 
@@ -518,6 +541,7 @@ def phase_parity(torch, np, seed):
         raise AssertionError(f"cuda left w_in unchanged (max delta {moved})")
     phase_parity_runtime_shape(torch, np, seed)
     phase_parity_tiled_runtime_shape(torch, np, seed)
+    phase_parity_example_shapes(torch, np)
 
     # timings at this shape: the plain versions (host clock, they loop in
     # Python) and the kernels (CUDA events)
@@ -608,6 +632,69 @@ def phase_parity_tiled_runtime_shape(torch, np, seed):
               for part, g, w in zip(("w_in", "w_out"), got, want))
     _line("parity", kernel="cuda_tiled", shape="T=6 G=4",
           instantiation="runtime", max_abs_err=f"{err:.3e}")
+
+
+def phase_parity_example_shapes(torch, np):
+    """K1 and K2 at the quickstart's and serve example's shape (the smoke
+    config: d=32, W=3 so w_f=2, N=3), and K3 at the distributed example's
+    (the same at T=4, on one rank's 16 sentences of a 64-sentence batch),
+    each on the first batch of the examples' cluster corpus, against the
+    plain version; each launch must take the runtime-shaped body, and K2
+    must equal K1 bit for bit."""
+    from repro_torch.configs.w2v import smoke
+    from repro_torch.data.batching import BatchingPipeline
+    from repro_torch.data.corpus import synthetic_cluster_corpus
+    from repro_torch.kernels import fullw2v, ops, registry
+
+    corpus = synthetic_cluster_corpus(n_clusters=8, words_per_cluster=16,
+                                      n_sentences=800, mean_len=12, seed=0)
+    dev = torch.device("cuda")
+    for cfg, names, rows in (
+            (smoke(epochs=8, dim=32), ("cuda", "cuda_pipelined"), None),
+            (smoke(epochs=5, dim=32, sentences_per_batch=64,
+                   tile_windows=4), ("cuda_tiled",), 64 // 4)):
+        pipe = BatchingPipeline(corpus, cfg)
+        batch = next(pipe.batches(pad_len=cfg.resolved_pad_len, epoch=0))
+        if rows:
+            batch = _head(batch, rows)
+        step = batch.step_inputs(cfg.lr, dev)
+        static = ops.static_for(cfg, step.tile)
+        S, L, N = batch.negs.shape
+        if step.has_plan:
+            inst = fullw2v.tiled_choice(static.w_f, N, cfg.dim, L,
+                                        static.tile, static.gemm_windows)[0]
+        else:
+            inst = fullw2v.seq_instantiation(static.w_f, N, cfg.dim, L)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        shape = (pipe.table_rows, cfg.dim)
+        w_in = (torch.rand(shape, generator=gen, device=dev) - 0.5) / cfg.dim
+        w_out = (torch.rand(shape, generator=gen, device=dev) - 0.5) / cfg.dim
+        want = (w_in.clone(), w_out.clone())
+        registry.get("torch_tiled" if step.has_plan else "torch").update(
+            *want, step, static)
+        got = {}
+        for name in names:
+            got[name] = (w_in.clone(), w_out.clone())
+            fullw2v.reset_launch_counts()
+            registry.get(name).update(*got[name], step, static)
+            torch.cuda.synchronize()
+            took = {k: v for k, v in (fullw2v.TILED_LAUNCHES if step.has_plan
+                                      else fullw2v.SEQ_LAUNCHES).items() if v}
+            if not inst.startswith("runtime") or took != {inst: 1} or \
+                    fullw2v.LAUNCHES[name] != 1:
+                raise AssertionError(f"{name} at d={cfg.dim} took {took}, "
+                                     f"not the runtime body ({inst}) once")
+            where = f"{name} (example shape d={cfg.dim} T={static.tile})"
+            err = max(_check_close(torch, f"{where} {part}", g, w)
+                      for part, g, w in zip(("w_in", "w_out"), got[name],
+                                            want))
+            _line("parity", kernel=name, shape=f"d={cfg.dim} w_f={static.w_f}"
+                  f" N={N} T={static.tile} S={S} L={L}", instantiation=inst,
+                  max_abs_err=f"{err:.3e}")
+        if len(got) == 2 and not all(
+                torch.equal(a, b) for a, b in zip(*got.values())):
+            raise AssertionError("cuda_pipelined is not bit-identical to "
+                                 "cuda at the examples' shape")
 
 
 def make_config(args, tile: int, **kw):
@@ -4453,6 +4540,164 @@ def phase_lm_tp(args) -> list:
     return reports
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the examples (examples/torch_*.py) on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLE_100M_BATCHES = "60"    # past the 100M run's batch-50 checkpoint
+# (label, script, arguments beyond its defaults, the kernel it must launch
+# (None: none), patterns of the lines it must print)
+EXAMPLE_RUNS = (
+    ("quickstart", "torch_quickstart.py", (), "cuda_pipelined",
+     ("^throughput: ", "^quality: ")),
+    ("serve", "torch_serve_w2v.py", (), "cuda",
+     ("^swap: ", "^answers_changed=True", "^serve_w2v: ok$")),
+    ("lm", "torch_lm_train_smoke.py", (), None,
+     (r"^\S+: step 20, loss [\d.]+ -> [\d.]+ ",)),
+    ("distributed", "torch_distributed_w2v.py", (), "cuda_tiled",
+     ("^throughput: ", "^quality: ")),
+    ("100m", "torch_train_100m_w2v.py",
+     ("--batches", EXAMPLE_100M_BATCHES), "cuda_pipelined",
+     ("^  batch 50: ", "^trained ", "^embedding norms: ")),
+    ("100m resume", "torch_train_100m_w2v.py",
+     ("--batches", EXAMPLE_100M_BATCHES), None,
+     (f"^resumed from checkpoint batch {EXAMPLE_100M_BATCHES}$",
+      "^trained ")),
+)
+# the lines phase 18 prints for each example (its numbers)
+EXAMPLE_KEEP = (r"^(backend=|throughput: |quality: |serving: |swap: "
+                r"|answers_changed=|vocab=|resumed |trained "
+                r"|embedding norms: |\S+: step \d+, loss )")
+
+
+def _dump_launches(out: str, tag: str) -> None:
+    """This process's kernel launch counts, as ``out/<tag>-<pid>.json``."""
+    from repro_torch.kernels import fullw2v
+    with open(os.path.join(out, f"{tag}-{os.getpid()}.json"), "w") as f:
+        json.dump({"launches": fullw2v.LAUNCHES,
+                   "seq": fullw2v.SEQ_LAUNCHES,
+                   "tiled": fullw2v.TILED_LAUNCHES}, f)
+
+
+def example_rank(mesh, fn, out: str, *args, **kwargs):
+    """A rank of an example's ``start_ranks``: its own function, then its
+    launch counts."""
+    try:
+        return fn(mesh, *args, **kwargs)
+    finally:
+        _dump_launches(out, f"rank{mesh.rank}")
+
+
+def example_child(path: str, argv: list, out: str) -> None:
+    """Run ``path`` as ``__main__`` with ``argv`` in this process (started by
+    :func:`run_example`) and write its launch counts, and each rank's when
+    it starts ranks, under ``out``. The example itself is unchanged: its
+    ``start_ranks`` is wrapped so that each rank reports too."""
+    import runpy
+
+    from repro_torch.launch import mesh
+    start = mesh.start_ranks
+
+    def counted(fn, n, device=None, *args, **kwargs):
+        return start(example_rank, n, device, fn, out, *args, **kwargs)
+
+    mesh.start_ranks = counted
+    sys.argv = [path, *argv]
+    try:
+        runpy.run_path(path, run_name="__main__")
+    finally:
+        _dump_launches(out, "main")
+
+
+def run_example(script: str, argv, tmp: str) -> tuple:
+    """One example as a subprocess on the default device (the GPU): exit 0
+    or raise. Returns its standard output, its seconds and the launch
+    counts summed over its processes."""
+    out = tempfile.mkdtemp(prefix="launches_", dir=tmp)
+    path = os.path.join(ROOT, "examples", script)
+    code = (f"import sys; sys.path[:0] = [{ROOT!r}, "
+            f"{os.path.join(ROOT, 'src')!r}]; import chip_smoke; "
+            f"chip_smoke.example_child({path!r}, {list(argv)!r}, {out!r})")
+    env = dict(os.environ, TMPDIR=tmp,
+               PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"{script} still running after 300 s") from e
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"{script} {' '.join(argv)} exited "
+                             f"{r.returncode}:\n{r.stdout[-2000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    counts: dict = {"launches": {}, "seq": {}, "tiled": {}, "ranks": 0}
+    for name in os.listdir(out):
+        with open(os.path.join(out, name)) as f:
+            got = json.load(f)
+        counts["ranks"] += name.startswith("rank")
+        for key in ("launches", "seq", "tiled"):
+            for k, v in got[key].items():
+                if v:
+                    counts[key][k] = counts[key].get(k, 0) + v
+    return r.stdout, seconds, counts
+
+
+def _example_report(label: str, argv, kernel, want, result) -> dict:
+    """Check one example's run (closing lines, the kernel of its path and
+    no other, four rank reports for the distributed one), print its line
+    and return its launches."""
+    import re
+    text, seconds, counts = result
+    missing = [w for w in want if not re.search(w, text, re.M)]
+    if missing:
+        raise AssertionError(f"{label}: no line {missing} in "
+                             f"{text[-2000:]!r}")
+    launched = counts["launches"]
+    if kernel is None:
+        if launched:
+            raise AssertionError(f"{label}: launched {launched}, wanted no "
+                                 f"kernel")
+    elif not launched.get(kernel) or set(launched) != {kernel}:
+        raise AssertionError(f"{label}: launched {launched}, wanted "
+                             f"{kernel} only")
+    if label == "distributed" and counts["ranks"] != 4:
+        raise AssertionError(f"distributed: {counts['ranks']} rank reports, "
+                             f"wanted 4")
+    lines = [ln.strip() for ln in text.splitlines()
+             if re.match(EXAMPLE_KEEP, ln)]
+    _line("examples", example=json.dumps(label),
+          args=json.dumps(" ".join(argv[:2])), seconds=f"{seconds:.1f}",
+          launches=json.dumps(launched),
+          bodies=json.dumps({"seq": counts["seq"], "tiled": counts["tiled"]}),
+          lines=json.dumps(lines))
+    return launched
+
+
+def phase_examples(torch) -> dict:
+    """Phase 18 (see the module docstring): each example at its defaults
+    (the 100M run to batch 60, then again on its checkpoint directory),
+    as a user runs it, one after another. Returns each kernel's launches
+    by example."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    by_kernel: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        ckpt = os.path.join(tmp, "w2v_100m_ckpt")
+        for label, script, argv, kernel, want in EXAMPLE_RUNS:
+            if script == "torch_train_100m_w2v.py":
+                argv = (*argv, "--ckpt-dir", ckpt)
+            result = run_example(script, argv, tmp)
+            for k, v in _example_report(label, argv, kernel, want,
+                                        result).items():
+                by_kernel.setdefault(k, {})[label] = v
+    _line("examples", phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return by_kernel
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4529,12 +4774,12 @@ def main(argv=None) -> int:
             "cuda_tiled_fused": h_fused}
 
     # 5. each kernel at the trainer's batch shape: parity, then time
-    # (K1 and K2 on a prefix: K3(T=1) equals them bit for bit on the whole
-    # batch; K3 at T=8 on the whole batch, and K4 equals it at phase 4)
+    # (each on a prefix: K3(T=1) equals K1 and K2 bit for bit on the whole
+    # batch, and K4 equals K3 at phase 4)
     timing = phase_main_shape(torch, np, sess1.pipeline, sess1.cfg,
                               ["cuda", "cuda_pipelined"], PARITY_SENTENCES)
     timing.update(phase_main_shape(torch, np, sess8.pipeline, sess8.cfg,
-                                   ["cuda_tiled"]))
+                                   ["cuda_tiled"], PARITY_SENTENCES))
     timing["cuda_tiled_fused"] = phase_sharded_shape(torch, np, sess_vs,
                                                      s_fused)
 
@@ -4604,6 +4849,10 @@ def main(argv=None) -> int:
     # (data=1, model=2) mesh of gloo ranks sharing the card, a train step,
     # a prefill and a decode token against one process on the card
     phase_lm_tp(args)
+
+    # 18. the five examples (examples/torch_*.py) as a user runs them, each
+    # in its own process on the card; their launches of K1-K4
+    example_launches = phase_examples(torch)
     mixed_launches = {"cuda": {QUALITY_MIXED: quality["mixed"]["launches"]}}
     for (tables, tile), m in mixed.items():
         mixed_launches.setdefault(m["kernel"], {})[tables] = m["launches"]
@@ -4665,6 +4914,8 @@ def main(argv=None) -> int:
         # launches on each rank of phase 13's chaos runs (baseline and
         # faulted run, replays included), by run
         row["mesh_chaos_launches"] = chaos_launches.get(name, {})
+        # launches in phase 18's examples (all their processes), by example
+        row["example_launches"] = example_launches.get(name, {})
         kernels.append(row)
     _line("total", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi, flush=True)     # the card and its limit, beside the numbers

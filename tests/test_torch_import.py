@@ -2,7 +2,7 @@
 ``repro_torch.distributed``, ``repro_torch.train`` and
 ``repro_torch.kernels.quant`` included), ``chip_smoke`` and
 ``tools/torch_chaos.py`` (its entry point's imports too) leaves ``jax``,
-``ml_dtypes`` and the reference package ``repro`` unloaded, and no source of the port names them in an import. A process
+``ml_dtypes`` and the reference package ``repro`` unloaded, and no source of the port (``examples/torch_*.py`` included) names them in an import. A process
 prefetch worker's import path (and the CLI module, which such a worker
 imports as its main module, and the mesh launcher it imports for more
 than one rank) leaves ``torch`` unloaded too, and so does the serving CLI
@@ -23,8 +23,9 @@ from tests.conftest import REPO, run_subprocess
 
 PORT = pathlib.Path(REPO) / "src" / "repro_torch"
 TOOL = pathlib.Path(REPO) / "tools" / "torch_chaos.py"
-SOURCES = sorted(PORT.rglob("*.py")) + [pathlib.Path(REPO) / "chip_smoke.py",
-                                        TOOL]
+SOURCES = (sorted(PORT.rglob("*.py"))
+           + [pathlib.Path(REPO) / "chip_smoke.py", TOOL]
+           + sorted((pathlib.Path(REPO) / "examples").glob("torch_*.py")))
 # tools/torch_chaos.py as a module, without running its entry point
 LOAD_TOOL = """
         import importlib.util

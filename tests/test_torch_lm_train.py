@@ -401,19 +401,36 @@ def _slow_at(slow_steps, sleep_s):
 
 def test_step_timeout_fires_and_recovers(caplog):
     """``LoopConfig.step_timeout_s`` guards each step with a watchdog: a
-    step that overruns it (a 2 s stall against a 1.5 s timeout) fails
-    with ``StepTimeout``, is recovered, and the run ends at its last step.
+    step that overruns it (a stall of twice the timeout) fails with
+    ``StepTimeout``, is recovered, and the run ends at its last step.
     With no checkpoint the overrun step's update stands, so losses and
-    parameters equal a run without the stall exactly."""
-    tr = _trainer(steps=4, batch_fn=_slow_at({2}, 2.0))
-    tr.loop = dataclasses.replace(tr.loop, step_timeout_s=1.5)
+    parameters equal a run without the stall exactly.
+
+    The run without the stall goes first: it takes the process's one-time
+    warm-up (a first step of 2.5-2.7 s on a CPU that then steps in
+    0.24-0.64 s, a second trainer's first step included), and its slowest
+    warm step ``s`` (steps 1-3) sets the timeout, ``max(5 s, 4·s)``, so
+    that the timeout does not grow with the cold step. The floor is for a
+    loaded host: in a full ``-n 6`` run an unstalled step overran a
+    2.06 s timeout whose warm steps had taken at most 0.52 s."""
+    marks = []
+    stream = _slow_at(set(), 0.0)
+
+    def timed(step):
+        marks.append(time.perf_counter())
+        return stream(step)
+
+    plain = _trainer(steps=4, batch_fn=timed)
+    want = plain.train()
+    marks.append(time.perf_counter())
+    timeout = max(5.0, 4 * float(np.diff(marks)[1:].max()))
+    tr = _trainer(steps=4, batch_fn=_slow_at({2}, 2 * timeout))
+    tr.loop = dataclasses.replace(tr.loop, step_timeout_s=timeout)
     with caplog.at_level(logging.WARNING):
         out = tr.train()
     recovered = [r.getMessage() for r in caplog.records
                  if "recovering" in r.getMessage()]
     assert len(recovered) == 1 and "StepTimeout" in recovered[0], recovered
-    plain = _trainer(steps=4, batch_fn=_slow_at(set(), 0.0))
-    want = plain.train()
     assert out["final_step"] == 4 and len(out["losses"]) == 4
     assert out["losses"] == want["losses"]
     for g, w in zip(tree_leaves(tr.params), tree_leaves(plain.params)):
