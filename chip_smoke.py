@@ -52,6 +52,11 @@ non-zero):
               its mean unique rows per tile, and the columns the
               cross-tile prefetch took and rejected (the kernel's device
               counters, held against the host's count from the plan).
+              One line gives ``plan_costs`` of the T=1 and T=8 batches
+              (row moves and GEMMs a window, the T=8 reduction) beside
+              K1-K3's ms and the card; the deprecated
+              ``ops.sgns_update`` must equal ``ops.step`` (K2) bit for
+              bit on the T=1 batch.
 6. prefetch — the main path again through the async host pipeline on
               phase 4's corpus: T=1 ``auto`` with 2 and 4 thread workers
               and 2 process workers, T=8 ``auto`` with 2 thread and 2
@@ -330,6 +335,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -965,11 +971,22 @@ def phase_main_shape(torch, np, pipe, cfg, names, parity_sentences=None):
     its bound and the plain version's time on the sentences it held. K1
     and K2 report the instantiation they took, and must equal each other
     and K3 at T=1 (its plan from ``plan_tiles``) bit for bit on the whole
-    batch."""
-    from repro_torch.data.batching import plan_tiles
+    batch. Each row carries ``plan_costs`` of the batch (its own tile
+    plan, or ``plan_tiles`` at T=1) and the seconds the replay took. At
+    T=1 (``cuda_pipelined`` named) the deprecated ``ops.sgns_update``
+    must return what ``ops.step`` returns on copies of the same tables,
+    bit for bit, through one K2 launch each."""
+    from repro_torch.data.batching import plan_costs, plan_tiles
     from repro_torch.kernels import fullw2v, ops, registry
+    from repro_torch.kernels.tables import Tables
 
     batch = next(pipe.batches(pad_len=cfg.resolved_pad_len, epoch=0))
+    t0 = time.perf_counter()
+    plan = batch.plan if batch.plan is not None else plan_tiles(
+        batch.tokens, batch.negs, batch.lengths, 1)
+    costs = plan_costs(plan, batch.lengths, cfg.negatives,
+                       cfg.tile_gemm_windows)
+    costs["replay_s"] = time.perf_counter() - t0
     step = batch.step_inputs(cfg.lr, torch.device("cuda"))
     head, step_head, where = batch, step, "whole batch"
     if parity_sentences and parity_sentences < len(batch.tokens):
@@ -1021,7 +1038,8 @@ def phase_main_shape(torch, np, pipe, cfg, names, parity_sentences=None):
                          us_per_window=ms * 1e3 / windows,
                          S=int(batch.tokens.shape[0]),
                          parity_sentences=int(head.tokens.shape[0]),
-                         parity_windows=int(head.lengths.sum()))
+                         parity_windows=int(head.lengths.sum()),
+                         plan_costs=costs)
         inst = {}
         if took:
             out[name]["instantiation"] = took[0]
@@ -1064,7 +1082,49 @@ def phase_main_shape(torch, np, pipe, cfg, names, parity_sentences=None):
                                      f"at the main path's shape")
         _line("main-shape", bitwise="cuda_pipelined==cuda==cuda_tiled(T=1)",
               S=int(batch.tokens.shape[0]))
+    if "cuda_pipelined" in names:
+        t0 = time.perf_counter()
+        want = ops.step(Tables(*tables()), step, cfg)
+        fullw2v.reset_launch_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = ops.sgns_update(*tables(), step, cfg)
+        torch.cuda.synchronize()
+        _launched("cuda_pipelined", 1)
+        if not any(issubclass(w.category, DeprecationWarning)
+                   for w in caught):
+            raise AssertionError("ops.sgns_update did not warn "
+                                 "DeprecationWarning")
+        if not (torch.equal(got[0], want.w_in)
+                and torch.equal(got[1], want.w_out)):
+            raise AssertionError("ops.sgns_update differs from ops.step on "
+                                 "copies of the same tables")
+        _line("main-shape", bitwise="ops.sgns_update==ops.step",
+              kernel="cuda_pipelined", S=int(batch.tokens.shape[0]),
+              seconds=f"{time.perf_counter() - t0:.2f}")
     return out
+
+
+def plan_costs_line(timing: dict, smi: str) -> None:
+    """The replayed row traffic of phase 5's batches (``plan_costs``) at
+    T=1 (K1/K2's batch) and T=8 (K3's), beside K1-K3's ms a launch and
+    the card: row moves and GEMMs a window and the T=8 reduction."""
+    c1 = timing["cuda_pipelined"]["plan_costs"]
+    c8 = timing["cuda_tiled"]["plan_costs"]
+    rows = c8["dma_per_window"] / c1["dma_per_window"]
+    gemms = c8["gemms_per_window"] / c1["gemms_per_window"]
+    _line("plan-costs", T1_windows=c1["windows"],
+          T1_rows_per_window=f"{c1['dma_per_window']:.4f}",
+          T1_gemms_per_window=f"{c1['gemms_per_window']:.4f}",
+          T8_windows=c8["windows"],
+          T8_rows_per_window=f"{c8['dma_per_window']:.4f}",
+          T8_gemms_per_window=f"{c8['gemms_per_window']:.4f}",
+          row_reduction=f"{1 - rows:.4f}", gemm_reduction=f"{1 - gemms:.4f}",
+          K1_ms=f"{timing['cuda']['ms']:.3f}",
+          K2_ms=f"{timing['cuda_pipelined']['ms']:.3f}",
+          K3_ms=f"{timing['cuda_tiled']['ms']:.3f}",
+          replay_s=f"{c1['replay_s'] + c8['replay_s']:.3f}",
+          card=json.dumps(smi))
 
 
 # ---------------------------------------------------------------------------
@@ -4782,6 +4842,7 @@ def main(argv=None) -> int:
                                    ["cuda_tiled"], PARITY_SENTENCES))
     timing["cuda_tiled_fused"] = phase_sharded_shape(torch, np, sess_vs,
                                                      s_fused)
+    plan_costs_line(timing, smi)
 
     # 6. prefetch workers on the main path, bit for bit against phase 4
     for workers, mode in ((2, "thread"), (4, "thread"), (2, "process")):

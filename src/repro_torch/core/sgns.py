@@ -55,6 +55,13 @@ def window_delta(
     return d_ctx, d_out
 
 
+
+def window_context_positions(t: int, w_f: int, length: int) -> list:
+    """Python helper (tests): context positions of window t."""
+    return [p for p in range(t - w_f, t + w_f + 1)
+            if p != t and 0 <= p < length]
+
+
 def pair_delta(
     in_vec: torch.Tensor,    # (d,)
     out_vec: torch.Tensor,   # (d,)

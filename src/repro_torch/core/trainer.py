@@ -872,3 +872,7 @@ class TrainSession:
         sims = e @ e[word_id]
         sims[word_id] = -np.inf
         return np.argsort(-sims)[:k]
+
+
+# Backwards-compatible name: the session IS the trainer.
+W2VTrainer = TrainSession

@@ -40,7 +40,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.configs.w2v import W2VConfig
+from repro_torch.configs.w2v import W2VConfig, resolve_gemm_windows
 from repro_torch.data.corpus import Corpus
 from repro_torch.data.negatives import NegativeSampler
 from repro_torch.data.vocab import Vocab
@@ -134,6 +134,10 @@ class TilePlan:
     strict: np.ndarray    # (S, nt) int32 — 1 iff a repeated row involves a
                           # *target* slot (sequential fallback; see below)
 
+    @property
+    def n_tiles(self) -> int:
+        return self.uniq.shape[1]
+
 
 def plan_tiles(tokens: np.ndarray, negs: np.ndarray, lengths: np.ndarray,
                tile: int) -> TilePlan:
@@ -204,6 +208,75 @@ def plan_tiles(tokens: np.ndarray, negs: np.ndarray, lengths: np.ndarray,
         ucount=ucount.reshape(S, nt).astype(np.int32),
         strict=strict.reshape(S, nt),
     )
+
+
+
+def plan_costs(plan: TilePlan, lengths: np.ndarray, n_neg: int,
+               gemm_windows: int = 0) -> dict:
+    """Exact per-batch row traffic and GEMM count of the tiled kernel,
+    replayed from the plan against the kernel's runtime guards (its
+    control flow is a function of the plan); the T=1 numbers are the
+    sequential kernel's. The reference's function, with its keys and
+    values (the reference counts in a Python loop; this one with numpy).
+
+    Counts. One "dma" is one table row of ``d`` f32 moved between the
+    tables in global memory and the kernel's shared memory or registers:
+    a load is one warp's 16-byte ``cp.async`` a lane at d=128 (4 bytes a
+    thread on the runtime-shaped bodies), a store ``d`` 4-byte stores
+    from the threads that update the row. The ring costs one load and
+    one store a position; a fused tile loads and writes back each of its
+    ``ucount`` unique rows once; a strict tile's windows load and store
+    their N+1 output rows each. One "gemm" is one of a step's three
+    products (the pair dot products ``corr``, ``d_ctx``, ``d_out``),
+    computed on the card with f32 FMA chains and warp reductions, no
+    tensor core: a fused tile takes one step of G windows a GEMM group,
+    a strict tile one step a window, so ``gemms / 3`` is the number of
+    steps the kernel walks.
+
+    The CUDA kernels (``csrc/seq.cuh`` K1/K2, ``csrc/tiled.cuh`` K3/K4)
+    load and store exactly these rows, and no other table row:
+    * K2's ``cp.async`` prefetch of window t+1's rows and K3/K4's
+      cross-tile prefetch of tile i+1's unique rows move loads earlier,
+      not in number. A row of the next window or tile that this one
+      writes (K2's hazard mask; K3's rejected columns, ``tiled.cuh``
+      440-476) is loaded once, after the stores, instead of ahead.
+    * The ring lives in shared memory: each sentence position is loaded
+      once as it enters the window and stored once as it leaves (K1/K2
+      store position t - w_f after window t, K3/K4 the positions a step
+      completes), the last ones by the flush at the sentence's end.
+    They differ from the count in traffic it leaves out: each sentence's
+    indices (tokens, negatives, length; for K3/K4 also the plan's
+    ``uniq``, ``scatter``, ``ucount``, ``strict``) are staged into shared
+    memory once, ints not rows; a row counted twice in one batch may be
+    served from the 50 MB L2, so HBM may see fewer bytes than the count;
+    and K4's cold rows reach it through ``_VocabShardedRun``'s gather and
+    write-back, index ops outside the kernel that the count does not
+    hold.
+    """
+    m = n_neg + 1
+    T = plan.tile
+    G = resolve_gemm_windows(T, gemm_windows)
+    lengths = np.asarray(lengths, dtype=np.int64)
+    windows = int(lengths.sum())
+    ring_dmas = 2 * windows            # each position: 1 load + 1 store
+    # windows of tile i inside its sentence; tiles with none are skipped
+    n_valid = np.clip(lengths[:, None] - np.arange(plan.n_tiles) * T, 0, T)
+    live = n_valid > 0
+    strict = (plan.strict != 0) & live
+    fused = ~strict & live
+    out_dmas = int((2 * m * n_valid)[strict].sum()
+                   + (2 * plan.ucount.astype(np.int64))[fused].sum())
+    gemms = int((3 * n_valid)[strict].sum()
+                + (3 * (-(-n_valid // G)))[fused].sum())
+    return {
+        "windows": windows,
+        "dma_total": ring_dmas + out_dmas,
+        "dma_ring": ring_dmas,
+        "dma_out_rows": out_dmas,
+        "gemms": gemms,
+        "dma_per_window": (ring_dmas + out_dmas) / max(windows, 1),
+        "gemms_per_window": gemms / max(windows, 1),
+    }
 
 
 @dataclasses.dataclass

@@ -10,7 +10,7 @@ must embed them nearby).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Iterator, List, Optional
 
 import numpy as np
 
@@ -88,3 +88,16 @@ def synthetic_cluster_corpus(
         sentences.append(words.astype(np.int64).tolist())
     return Corpus(sentences, v, clusters=clusters)
 
+
+
+def load_text(path: str, max_sentence_len: int = 1000) -> Iterator[List[str]]:
+    """Stream whitespace-tokenized sentences from a text file (one sentence
+    per line; lines longer than `max_sentence_len` are split, matching the
+    paper's 1,000-word cap, Table 3)."""
+    with open(path, "r", encoding="utf-8", errors="replace") as f:
+        for line in f:
+            words = line.split()
+            for i in range(0, len(words), max_sentence_len):
+                chunk = words[i:i + max_sentence_len]
+                if chunk:
+                    yield chunk

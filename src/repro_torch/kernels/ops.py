@@ -36,7 +36,8 @@ table, the f32 step, re-encode every row.
 """
 from __future__ import annotations
 
-from typing import Optional
+import warnings
+from typing import Optional, Tuple
 
 import torch
 
@@ -151,6 +152,21 @@ def static_for(cfg: W2VConfig, tile: int = 1) -> KernelStatic:
                       if tile > 1 else 0))
 
 
+
+def traceable_update(backend: str, static: KernelStatic):
+    """The named backend's raw ``(w_in, w_out, step) -> (w_in, w_out)``
+    update, in place — the function :func:`step` resolves and runs, for
+    callers that embed it in their own step. No resolution and no
+    fallback: a CUDA backend given CPU tensors raises, as the kernels'
+    wrappers do."""
+    be = registry.get(backend)
+
+    def run(w_in: torch.Tensor, w_out: torch.Tensor, step: StepInputs):
+        return be.update(w_in, w_out, step, static)
+
+    return run
+
+
 def step(tables: Tables, step: StepInputs, cfg: W2VConfig,
          backend: str = "auto", mesh=None) -> Tables:
     """Train one batch of sentences with FULL-W2V semantics, updating the
@@ -224,6 +240,9 @@ def step(tables: Tables, step: StepInputs, cfg: W2VConfig,
         store.copy_(quant.encode_stochastic(coll.pmean(new, mesh), dt,
                                             step.round_key, tag)[0])
     return tables
+
+
+_step = step   # module-level alias: the shims' `step` parameter shadows it
 
 
 # ---------------------------------------------------------------------------
@@ -543,3 +562,55 @@ class _VocabShardedRun:
                                    quant.bf16_stochastic(merged, k), cold))
         elif merged is not cold:
             cold.copy_(merged)
+
+
+# ---------------------------------------------------------------------------
+# Deprecated shims (warn and forward)
+# ---------------------------------------------------------------------------
+
+def sgns_update(
+    w_in: torch.Tensor,   # (V, d) f32 — updated in place
+    w_out: torch.Tensor,  # (V, d) f32 — updated in place
+    step: StepInputs,     # tokens/negs/lengths/lr (+ tile plan if T > 1)
+    cfg: W2VConfig,
+    backend: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Deprecated: use :func:`step` with a plain f32 ``Tables``.
+
+    Kept as a thin shim — warns and forwards to the unified entry point
+    with ``Tables(w_in=w_in, w_out=w_out)`` (an f32 replicated spec), so
+    existing callers keep their exact semantics, including the rejection
+    of vocab-sharded steps. Returns the tables, updated in place.
+    """
+    warnings.warn(
+        "ops.sgns_update is deprecated; use ops.step(Tables(w_in=..., "
+        "w_out=...), step, cfg, backend=...) — the TableSpec-driven entry "
+        "point that also covers sharded and mixed-precision tables",
+        DeprecationWarning, stacklevel=2)
+    out = _step(Tables(w_in=w_in, w_out=w_out), step, cfg, backend=backend)
+    return out.w_in, out.w_out
+
+
+def vocab_sharded_update(backend: str, static: KernelStatic, placement,
+                         axis_name: str = "data", exchange: str = "exact"):
+    """Deprecated: use :func:`step` with vocab-sharded ``Tables``.
+
+    Kept as a thin shim — warns and returns the f32 runner with the
+    pre-TableSpec ``(hot_in, hot_out, cold_in, cold_out, step) -> 4-tuple``
+    signature over :meth:`_VocabShardedRun.run_f32`. One shard, no mesh
+    (``axis_name`` names the reference's mesh axis and is unused): the
+    runner updates the tables in place and returns them.
+    """
+    warnings.warn(
+        "ops.vocab_sharded_update is deprecated; use ops.step with "
+        "vocab-sharded Tables (spec/placement metadata select the "
+        "exchange), or _VocabShardedRun for a raw per-shard runner",
+        DeprecationWarning, stacklevel=2)
+    run = _VocabShardedRun(backend, static, placement, exchange=exchange,
+                           spec=TableSpec(vocab_shard=True))
+
+    def run4(hot_in, hot_out, cold_in, cold_out, step):
+        run.run_f32(hot_in, hot_out, cold_in, cold_out, step)
+        return hot_in, hot_out, cold_in, cold_out
+
+    return run4
