@@ -63,10 +63,11 @@ non-zero):
               process workers; each must launch its phase-4 kernel once
               per batch and end with phase 4's synchronous tables bit for
               bit. Prints words/s, s per step, the steady step cadence
-              after the first batch, host batching (the pipeline's wall
-              clock) and host wait per step, the first batch's wait,
-              ``device_busy_frac``, the queue's mean ready depth and its
-              high-water mark.
+              after the first batch, host batching (the produce and
+              finalize busy seconds) and host wait per step, the first
+              batch's wait, ``pipeline_wait_frac`` (the share of the wall
+              time blocked on the pipeline), the queue's mean ready depth
+              and its high-water mark.
 7. resume   — T=1 ``auto`` and the T=8 vocab-sharded session (K4), each
               with 2 process workers and a checkpoint every batch: 2
               batches, the session dropped, a new one on the same
@@ -733,8 +734,9 @@ def phase_trainer(torch, np, args, tile: int, backend: str, expect: str,
                   around_train=None, **shard):
     """One main-path run; returns (session, launches, seconds/step, the
     K1/K2 instantiation it took or None, host seconds/step). Host seconds:
-    the pipeline's numpy batching (``BatchingStats.seconds``) and the step
-    loop's wait on the host pipeline (``fetch_seconds``: batching and the
+    the pipeline's numpy batching (``BatchingStats.seconds``: produce and
+    finalize busy time) and the step loop's wait for its batch
+    (``fetch_seconds``: the pipeline, a pinned slot and the
     host-to-device copies), each per step. ``around_train``: a context
     manager entered around the training run alone."""
     from repro_torch.core.quality import evaluate
@@ -1192,7 +1194,7 @@ def phase_prefetch(torch, np, args, base, workers: int, mode: str):
                # launch to launch after the first batch: the steady cadence
                steady_s_per_step=(stamps[-1] - stamps[0]) / max(1,
                                                                batches - 1),
-               device_busy_frac=sess.device_busy_frac,
+               pipeline_wait_frac=sess.pipeline_wait_frac,
                mean_depth=pipe.prefetch.mean_depth,
                max_in_flight=pipe.prefetch.max_in_flight,
                heals=pipe.prefetch.heals)

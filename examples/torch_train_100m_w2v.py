@@ -80,7 +80,7 @@ def run(batches: int = 200, vocab: int = 400_000, ckpt_dir=None,
     trainer.train(max_batches=batches)
     print(f"trained {trainer.state.words_seen:,} words in "
           f"{time.time() - t0:.0f}s -> {trainer.words_per_sec:,.0f} words/s "
-          f"(device busy {trainer.device_busy_frac:.0%})")
+          f"(pipeline wait {trainer.pipeline_wait_frac:.0%} of it)")
     print("final checkpoint:", trainer.save_checkpoint())
     emb = trainer.embeddings()
     print("embedding norms: mean", float(np.linalg.norm(emb, axis=1).mean()))

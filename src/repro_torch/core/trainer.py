@@ -55,6 +55,7 @@ from repro_torch.kernels import tables as tables_mod
 from repro_torch.kernels.registry import StepInputs
 from repro_torch.kernels.tables import Tables, TableSpec
 from repro_torch.launch.mesh import DataMesh
+from repro_torch.spans import SpanRecorder
 
 log = logging.getLogger("repro_torch.trainer")
 
@@ -99,10 +100,15 @@ class TrainState:
 class StepMetrics:
     """Per-batch metrics yielded by :meth:`TrainSession.stream`.
 
-    ``fetch_seconds`` is the time the step loop spent blocked waiting for
-    this batch from the host pipeline (its host-side copy into pinned
-    buffers included). ``queue_depth`` is an async pipeline's ready-batch
-    depth when this batch was taken (-1 for the synchronous pipeline).
+    ``fetch_seconds`` is the time the step loop spent getting this batch
+    ready for the device: blocked on the host pipeline
+    (``pipeline_wait_seconds``), then, on the GPU, waiting for a pinned
+    slot (for the step two back to end on the card) and copying into it;
+    the span ``w2v.fetch`` and its children ``w2v.pipeline.wait``,
+    ``w2v.lift.slot_wait`` and ``w2v.lift.copy``, from the same
+    ``time.time_ns()`` reads. ``queue_depth`` is an async pipeline's
+    ready-batch depth when this batch was taken (-1 for the synchronous
+    pipeline).
     ``skipped`` marks a poison batch the supervisor excised (counters
     advanced, tables untouched — DESIGN.md §9)."""
     epoch: int
@@ -112,6 +118,7 @@ class StepMetrics:
     lr: float
     backend: str
     fetch_seconds: float = 0.0
+    pipeline_wait_seconds: float = 0.0
     queue_depth: int = -1
     skipped: bool = False
 
@@ -238,12 +245,20 @@ class _PinnedLift:
         end.record(torch.cuda.current_stream(self.device))
         self._ended[self._slot] = end
 
-    def __call__(self, build: Callable) -> StepInputs:
+    def __call__(self, build: Callable, spans: SpanRecorder,
+                 of: Batch) -> StepInputs:
         """``build(put)`` -> StepInputs, with ``put`` lifting each numpy
-        array through the next slot's pinned buffers."""
+        array through the next slot's pinned buffers. The wait for the
+        slot is the span ``w2v.lift.slot_wait``, the rest
+        ``w2v.lift.copy``."""
         self._slot = slot = (self._slot + 1) % self.SLOTS
         if self._ended[slot] is not None:
-            self._ended[slot].synchronize()
+            with spans.span("w2v.lift.slot_wait", of):
+                self._ended[slot].synchronize()
+        with spans.span("w2v.lift.copy", of):
+            return self._copy(build, slot)
+
+    def _copy(self, build: Callable, slot: int) -> StepInputs:
         bufs = self._bufs[slot]
         order = itertools.count()
         compute = torch.cuda.current_stream(self.device)
@@ -377,8 +392,14 @@ class TrainSession:
         self._tables().check_runnable()
         self.total_words = max(1, pipeline.epoch_words * cfg.epochs)
         self.words_per_sec = 0.0
-        self.fetch_seconds = 0.0   # cumulative wait on the host pipeline
+        # cumulative StepMetrics.fetch_seconds / .pipeline_wait_seconds
+        self.fetch_seconds = 0.0
+        self.pipeline_wait_seconds = 0.0
         self.wall_seconds = 0.0    # last train() wall time
+        # spans and counters, recorded while a torch profiler is active
+        # (repro_torch.spans); the pipeline records into the same one
+        self.spans = SpanRecorder()
+        pipeline.spans = self.spans
         self._lift = (_PinnedLift(self.device)
                       if self.device.type == "cuda" else None)
         self.resumed_step: Optional[int] = None
@@ -438,11 +459,13 @@ class TrainSession:
     # -- train ---------------------------------------------------------------
     def train_batch(self, batch: Batch,
                     step: Optional[StepInputs] = None,
-                    fetch_seconds: float = 0.0) -> StepMetrics:
+                    fetch_seconds: float = 0.0,
+                    pipeline_wait_seconds: float = 0.0) -> StepMetrics:
         """Train one batch. ``step`` may be a pre-built :class:`StepInputs`
         from :meth:`stream`; its lr was computed from the projected word
         count, which equals ``current_lr()`` exactly because word counts
-        are known host-side ahead of training."""
+        are known host-side ahead of training. The kernel's host dispatch
+        is the span ``w2v.launch``."""
         lr = self.current_lr()
         skipped = ((self.state.epoch, self.state.epoch_batch)
                    in self.poison_skip)
@@ -459,18 +482,21 @@ class TrainSession:
             # needs the exchange plan, so rebuild it from the host batch
             step = self._make_step(batch, lr)
         if not skipped:
-            ops.step(self._tables(), step, self.cfg,
-                     backend=self._requested_backend, mesh=self.mesh)
+            with self.spans.span("w2v.launch", batch):
+                ops.step(self._tables(), step, self.cfg,
+                         backend=self._requested_backend, mesh=self.mesh)
         if self._lift is not None:
             self._lift.ended()
         self.state.words_seen += batch.n_words
         self.state.batches_seen += 1
         self.state.epoch_batch += 1
         self.fetch_seconds += fetch_seconds
+        self.pipeline_wait_seconds += pipeline_wait_seconds
         metrics = StepMetrics(
             epoch=self.state.epoch, batches_seen=self.state.batches_seen,
             words_seen=self.state.words_seen, batch_words=batch.n_words,
             lr=lr, backend=self.backend, fetch_seconds=fetch_seconds,
+            pipeline_wait_seconds=pipeline_wait_seconds,
             queue_depth=getattr(self.pipeline, "ready_depth", -1),
             skipped=skipped)
         if (self.ckpt_dir and self.ckpt_every
@@ -489,18 +515,44 @@ class TrainSession:
         go through :class:`_PinnedLift` (pinned buffers, a side stream, an
         event the compute stream waits on); on the CPU they are plain tensors. lr
         for batch k+1 is exact — it depends only on cumulative host-side
-        word counts."""
+        word counts.
+
+        Yields ``(batch, step, fetch_seconds, pipeline_wait_seconds)``:
+        the span ``w2v.fetch`` and its child ``w2v.pipeline.wait``, timed
+        by the same ``time.time_ns()`` reads. The take that finds the
+        epoch's end keeps its ``w2v.pipeline.wait`` but no ``w2v.fetch``:
+        no step takes a batch from it."""
         projected = self.state.words_seen
+        spans = self.spans
         try:
-            for batch in batch_iter:
-                lr = self._lr_at(projected)
-                if self._lift is None:
-                    step = self._make_step(batch, lr)
-                else:
-                    step = self._lift(
-                        lambda put: self._make_step(batch, lr, put))
+            while True:
+                t0 = time.time_ns()
+                fetch = spans.begin("w2v.fetch", start_ns=t0)
+                wait = spans.begin("w2v.pipeline.wait", start_ns=t0)
+                batch = None
+                try:
+                    batch = next(batch_iter, None)
+                finally:
+                    t1 = time.time_ns()
+                    spans.end(wait, end_ns=t1, of=batch)
+                    if batch is None:
+                        spans.end(fetch, keep=False)
+                if batch is None:
+                    return
+                try:
+                    lr = self._lr_at(projected)
+                    if self._lift is None:
+                        with spans.span("w2v.lift.copy", batch):
+                            step = self._make_step(batch, lr)
+                    else:
+                        step = self._lift(
+                            lambda put: self._make_step(batch, lr, put),
+                            spans, batch)
+                finally:
+                    t2 = time.time_ns()
+                    spans.end(fetch, end_ns=t2, of=batch)
                 projected += batch.n_words
-                yield batch, step
+                yield batch, step, (t2 - t0) / 1e9, (t1 - t0) / 1e9
         finally:
             close = getattr(batch_iter, "close", None)
             if close is not None:
@@ -531,22 +583,19 @@ class TrainSession:
             skip = 0
             prepared = self._prepared(it)
             try:
-                t0 = time.perf_counter()
                 cur = next(prepared, None)
-                wait = time.perf_counter() - t0
                 while cur is not None:
-                    batch, step = cur
-                    metrics = self.train_batch(batch, step=step,
-                                               fetch_seconds=wait)
+                    batch, step, fetch_s, wait_s = cur
+                    metrics = self.train_batch(
+                        batch, step=step, fetch_seconds=fetch_s,
+                        pipeline_wait_seconds=wait_s)
                     n_batches += 1
                     if max_batches is not None and n_batches >= max_batches:
                         yield metrics
                         return
                     # pull batch k+1 before yielding: the step just launched
                     # is still running on the device
-                    t0 = time.perf_counter()
                     cur = next(prepared, None)
-                    wait = time.perf_counter() - t0
                     yield metrics
             finally:
                 prepared.close()
@@ -555,7 +604,7 @@ class TrainSession:
               max_batches: Optional[int] = None) -> TrainState:
         """Drain :meth:`stream` to completion; returns the final state."""
         words0 = self.state.words_seen
-        self.fetch_seconds = 0.0
+        self.fetch_seconds = self.pipeline_wait_seconds = 0.0
         t0 = time.perf_counter()
         for _ in self.stream(epochs=epochs, max_batches=max_batches):
             pass
@@ -575,7 +624,7 @@ class TrainSession:
         from repro_torch.train.supervisor import TrainSupervisor
         sup = TrainSupervisor(self, **kwargs)
         words0 = self.state.words_seen
-        self.fetch_seconds = 0.0
+        self.fetch_seconds = self.pipeline_wait_seconds = 0.0
         t0 = time.perf_counter()
         try:
             state = sup.run()
@@ -591,12 +640,13 @@ class TrainSession:
                               if dt else 0.0)
 
     @property
-    def device_busy_frac(self) -> float:
-        """Fraction of the last ``train()`` wall time NOT spent blocked on
-        the host pipeline."""
+    def pipeline_wait_frac(self) -> float:
+        """Share of the last ``train()``'s wall time the step loop spent
+        blocked on the host pipeline (``w2v.pipeline.wait``, the epochs'
+        last takes left out)."""
         if not self.wall_seconds:
             return 0.0
-        return max(0.0, 1.0 - self.fetch_seconds / self.wall_seconds)
+        return self.pipeline_wait_seconds / self.wall_seconds
 
     # -- checkpoint / resume --------------------------------------------------
     def _split_across_ranks(self) -> bool:

@@ -35,14 +35,16 @@ synchronous pipeline, and what makes mid-epoch resume exact
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import spans as spans_mod
 from repro_torch.configs.w2v import W2VConfig, resolve_gemm_windows
 from repro_torch.data.corpus import Corpus
-from repro_torch.data.negatives import NegativeSampler
+from repro_torch.data.negatives import DrawTally, NegativeSampler
 from repro_torch.data.vocab import Vocab
 
 # Sentences per subsampling-rng key (and per async encode work unit). Fixed:
@@ -280,6 +282,30 @@ def plan_costs(plan: TilePlan, lengths: np.ndarray, n_neg: int,
 
 
 @dataclasses.dataclass
+class BatchCounters(DrawTally):
+    """What making one batch took, counted always and carried on the
+    :class:`Batch` (a process worker returns them inside it), so they are
+    the same in every pipeline mode. The negative draws (:class:`DrawTally`)
+    and the produce (encode, subsample, pack) and finalize intervals as
+    ``(start, end)`` from ``time.time_ns()`` with the native id of the
+    thread that ran each. Counting changes no draw."""
+    real_slots: int = 0           # drawn-array slots that serve real words
+    produce_ns: Tuple[int, int] = (0, 0)
+    produce_thread: int = 0
+    finalize_ns: Tuple[int, int] = (0, 0)
+    negatives_ns: Tuple[int, int] = (0, 0)    # inside finalize
+    finalize_thread: int = 0
+
+    @property
+    def produce_seconds(self) -> float:
+        return (self.produce_ns[1] - self.produce_ns[0]) / 1e9
+
+    @property
+    def finalize_seconds(self) -> float:
+        return (self.finalize_ns[1] - self.finalize_ns[0]) / 1e9
+
+
+@dataclasses.dataclass
 class Batch:
     tokens: np.ndarray    # (S, L) int32
     negs: np.ndarray      # (S, L, N) int32
@@ -305,6 +331,8 @@ class Batch:
     # replays identically at any worker count
     epoch: int = 0
     index: int = 0
+    counters: BatchCounters = dataclasses.field(
+        default_factory=BatchCounters)
 
     def step_inputs(self, lr, device, put=None, mesh=None) -> "StepInputs":
         """Lift this host batch onto ``device`` as the engine API's
@@ -317,16 +345,31 @@ class Batch:
         return StepInputs.from_batch(self, lr, device, put=put, mesh=mesh)
 
 
+def _counted(batch: "Batch") -> Tuple[Tuple[str, int], ...]:
+    """A batch's counts, under the names a SpanRecorder keeps them while a
+    profiler runs: the negative draws and the positions, real
+    (``sum(lengths)``) and padded (S x L)."""
+    c = batch.counters
+    return (("w2v.draw.rounds", c.draw_rounds),
+            ("w2v.draw.slots", c.slots_drawn),
+            ("w2v.draw.real_slots", c.real_slots),
+            ("w2v.positions.real", batch.n_words),
+            ("w2v.positions.padded", batch.tokens.size))
+
+
 @dataclasses.dataclass
 class BatchingStats:
-    """Host batching throughput counters.
+    """Host batching throughput: the words and the busy seconds of every
+    batch the consumer has taken, folded in from its
+    :class:`BatchCounters` as it takes each, so they mean the same in the
+    synchronous and the prefetching pipelines.
 
-    ``seconds`` measures *steady-state batching only*: the clock starts when
-    the first batch begins to be produced, so pipeline construction (vocab
-    build, alias-table build) and time spent suspended waiting on the
-    consumer never count. ``words_per_sec`` is therefore the Table-1 number
-    — what the host stage can sustain — not an end-to-end figure diluted by
-    one-time setup.
+    ``seconds`` is the busy time of batching: each batch's produce and
+    finalize intervals, summed. Pipeline construction (vocab and alias
+    table) and time suspended waiting on the consumer never count, nor does
+    a prefetch worker's wait for work. ``words_per_sec`` is therefore the
+    Table-1 number — what one host core sustains — not an end-to-end
+    figure diluted by set-up or spread over workers.
     """
     words: int = 0
     seconds: float = 0.0
@@ -334,6 +377,11 @@ class BatchingStats:
     @property
     def words_per_sec(self) -> float:
         return self.words / self.seconds if self.seconds else float("inf")
+
+    def fold(self, batch: "Batch") -> None:
+        c = batch.counters
+        self.words += batch.n_words
+        self.seconds += c.produce_seconds + c.finalize_seconds
 
 
 @dataclasses.dataclass
@@ -346,6 +394,9 @@ class PackedBatch:
     lengths: np.ndarray   # (rows,) int32
     pad_rows: int         # rows to pad back up to S at finalize time
     docs: Optional[np.ndarray] = None   # (rows,) int32 table rows, -1 none
+    epoch: int = 0
+    produce_ns: Tuple[int, int] = (0, 0)   # encode+subsample+pack, time_ns
+    produce_thread: int = 0
 
 
 def finalize_packed(packed: PackedBatch, cfg: W2VConfig,
@@ -357,17 +408,29 @@ def finalize_packed(packed: PackedBatch, cfg: W2VConfig,
     sampler table, epoch, placement, bag_table)`` — the keyed rng means any
     worker, in any order, produces the identical Batch, and
     ``plan_exchange`` is rng-free, so the attached exchange inherits the
-    same determinism."""
+    same determinism. The batch's :class:`BatchCounters` count its draws
+    and time this call."""
+    t_start = time.time_ns()
+    count = BatchCounters(produce_ns=packed.produce_ns,
+                          produce_thread=packed.produce_thread,
+                          finalize_thread=threading.get_native_id())
     toks, lens = packed.tokens, packed.lengths
     docs = packed.docs
     rng = negatives_rng(cfg.seed, epoch, packed.index)
+    t_neg = time.time_ns()
     if cfg.tile_windows > 1:
         # tile-shared negatives (Ji et al. HogBatch): one N-set per T
         # consecutive windows — the dedup win of the tiled kernel
         negs = sampler.sample_batch_tiled(
-            toks, cfg.negatives, cfg.tile_windows, lens, rng=rng)
+            toks, cfg.negatives, cfg.tile_windows, lens, rng=rng,
+            tally=count)
+        real_sets = int((-(-lens.astype(np.int64) // cfg.tile_windows)).sum())
     else:
-        negs = sampler.sample_batch(toks, cfg.negatives, rng=rng)
+        negs = sampler.sample_batch(toks, cfg.negatives, rng=rng,
+                                    tally=count)
+        real_sets = int(lens.sum())
+    count.negatives_ns = (t_neg, time.time_ns())
+    count.real_slots = real_sets * cfg.negatives
     if packed.pad_rows:
         toks = np.pad(toks, ((0, packed.pad_rows), (0, 0)))
         negs = np.pad(negs, ((0, packed.pad_rows), (0, 0), (0, 0)))
@@ -387,11 +450,12 @@ def finalize_packed(packed: PackedBatch, cfg: W2VConfig,
         bags = np.where(pos[..., None], bag_table[toks], -1).astype(np.int32)
     batch = Batch(tokens=toks, negs=negs, lengths=lens, n_words=n_words,
                   plan=plan, docs=docs, bags=bags, epoch=epoch,
-                  index=packed.index)
+                  index=packed.index, counters=count)
     if placement is not None:
         # local import: the planner imports this module (first_seen_unique)
         from repro_torch.distributed.vocab_placement import plan_exchange
         batch.exchange = plan_exchange(batch, placement)
+    count.finalize_ns = (t_start, time.time_ns())
     return batch
 
 
@@ -405,6 +469,8 @@ class BatchingPipeline:
         self.sampler = NegativeSampler(self.vocab.unigram_weights(),
                                        seed=cfg.seed + 1)
         self.stats = BatchingStats()
+        # the span recorder; a TrainSession deposits its own here
+        self.spans = spans_mod.SpanRecorder()
         # vocab-sharding placement: a sharded TrainSession deposits its
         # VocabPlacement here so finalize plans the row exchange per batch
         # (None => batches carry no exchange and the trainer plans inline)
@@ -497,11 +563,14 @@ class BatchingPipeline:
                             yield chunk, doc
 
     # -- stage 2: pack into fixed-shape blocks ------------------------------
-    def _packed(self, pad_len: Optional[int], epoch: int,
-                timed: bool = True) -> Iterator[PackedBatch]:
+    def _packed(self, pad_len: Optional[int], epoch: int
+                ) -> Iterator[PackedBatch]:
         """Assemble the epoch's encoded stream into indexed (S, L) token
         blocks. Deterministic given (corpus, cfg, epoch) — both pipelines
-        share it, so their batch indexing agrees by construction."""
+        share it, so their batch indexing agrees by construction. Each
+        block carries its produce interval: this generator's running time
+        since it last yielded (encode, subsample, pack), never the time it
+        sat suspended."""
         cfg = self.cfg
         L = pad_len or cfg.max_sentence_len
         S = cfg.sentences_per_batch
@@ -512,16 +581,9 @@ class BatchingPipeline:
         docs = np.full((S,), -1, np.int32)
         row = 0
         index = 0
-        stream = self._encoded_stream(epoch)
-        while True:
-            t0 = time.perf_counter()
-            item = next(stream, None)
-            if timed:   # encode+subsample time counts as batching work
-                self.stats.seconds += time.perf_counter() - t0
-            if item is None:
-                break
-            sent, doc = item
-            t0 = time.perf_counter()
+        thread = threading.get_native_id()
+        t0 = time.time_ns()
+        for sent, doc in self._encoded_stream(epoch):
             chunks = [sent[i:i + L] for i in range(0, len(sent), L)]
             for chunk in chunks:
                 if len(chunk) < 2:
@@ -532,21 +594,22 @@ class BatchingPipeline:
                 docs[row] = V + doc if doc >= 0 else -1
                 row += 1
                 if row == S:
-                    if timed:
-                        self.stats.seconds += time.perf_counter() - t0
                     yield PackedBatch(index, toks, lens, 0,
-                                      docs=docs if with_docs else None)
+                                      docs=docs if with_docs else None,
+                                      epoch=epoch,
+                                      produce_ns=(t0, time.time_ns()),
+                                      produce_thread=thread)
+                    t0 = time.time_ns()
                     index += 1
                     toks = np.zeros((S, L), np.int32)
                     lens = np.zeros((S,), np.int32)
                     docs = np.full((S,), -1, np.int32)
                     row = 0
-                    t0 = time.perf_counter()
-            if timed:
-                self.stats.seconds += time.perf_counter() - t0
         if row:
             yield PackedBatch(index, toks[:row], lens[:row], S - row,
-                              docs=docs[:row] if with_docs else None)
+                              docs=docs[:row] if with_docs else None,
+                              epoch=epoch, produce_ns=(t0, time.time_ns()),
+                              produce_thread=thread)
 
     # -- batches ------------------------------------------------------------
     def batches(self, pad_len: Optional[int] = None,
@@ -566,12 +629,28 @@ class BatchingPipeline:
         for packed in self._packed(pad_len, epoch):
             if packed.index < skip_batches:
                 continue
-            t0 = time.perf_counter()
             batch = finalize_packed(packed, self.cfg, self.sampler, epoch,
                                     self.placement, self.bag_table)
-            self.stats.seconds += time.perf_counter() - t0
-            self.stats.words += batch.n_words
+            self._took(batch)
             yield batch
+
+    def _took(self, batch: Batch) -> None:
+        """The consumer takes ``batch``: its counters fold into
+        :attr:`stats` and, under a profiler, into :attr:`spans`, its
+        timings as spans keyed by the batch (``w2v.produce``;
+        ``w2v.finalize`` with its child ``w2v.negatives``)."""
+        self.stats.fold(batch)
+        if not spans_mod.recording():
+            return
+        c, spans = batch.counters, self.spans
+        spans.add("w2v.produce", *c.produce_ns, of=batch,
+                  thread=c.produce_thread)
+        fin = spans.add("w2v.finalize", *c.finalize_ns, of=batch,
+                        thread=c.finalize_thread)
+        spans.add("w2v.negatives", *c.negatives_ns, of=batch,
+                  thread=c.finalize_thread, parent=fin)
+        for name, n in _counted(batch):
+            spans.count(name, n)
 
     @property
     def epoch_words(self) -> int:

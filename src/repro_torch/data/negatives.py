@@ -9,9 +9,24 @@ negative == target).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class DrawTally:
+    """What drawing a batch's negatives took. Each round draws the whole
+    array from the alias table (the first round, then one per redraw
+    while a slot conflicts, 17 at most); the deterministic fill that
+    follows a 17th round that still conflicts draws nothing."""
+    draw_rounds: int = 0
+    slots_drawn: int = 0      # array slots drawn, over all rounds
+
+    def drew(self, a: np.ndarray) -> None:
+        self.draw_rounds += 1
+        self.slots_drawn += a.size
 
 
 class AliasTable:
@@ -51,7 +66,8 @@ class NegativeSampler:
         self.vocab = len(weights)
 
     def sample_batch(self, targets: np.ndarray, n_neg: int,
-                     rng: Optional[np.random.Generator] = None) -> np.ndarray:
+                     rng: Optional[np.random.Generator] = None,
+                     tally: Optional[DrawTally] = None) -> np.ndarray:
         """Negatives for every window of a (S, L) target batch -> (S, L, N).
 
         Per-window distinctness (incl. vs target) via bounded rejection
@@ -61,17 +77,21 @@ class NegativeSampler:
         `rng` overrides the sampler's own stream — the keyed-randomness hook
         the batching pipelines use so every batch's draws depend only on
         ``(seed, epoch, batch_index)``, never on who sampled before
-        (DESIGN.md §4.1: worker-count-invariant async batching).
+        (DESIGN.md §4.1: worker-count-invariant async batching). ``tally``
+        counts the draws; it changes none.
         """
         if rng is None:
             rng = self.rng
+        tally = tally if tally is not None else DrawTally()
         S, L = targets.shape
         negs = self.table.sample((S, L, n_neg), rng).astype(np.int32)
+        tally.drew(negs)
         for _ in range(16):
             bad = self._conflicts(targets, negs)
             if not bad.any():
                 return negs
             resampled = self.table.sample(negs.shape, rng).astype(np.int32)
+            tally.drew(resampled)
             negs = np.where(bad, resampled, negs)
         # deterministic fallback: walk ids upward until conflict-free
         bad = self._conflicts(targets, negs)
@@ -83,7 +103,8 @@ class NegativeSampler:
     def sample_batch_tiled(self, targets: np.ndarray, n_neg: int,
                            tile: int,
                            lengths: Optional[np.ndarray] = None,
-                           rng: Optional[np.random.Generator] = None
+                           rng: Optional[np.random.Generator] = None,
+                           tally: Optional[DrawTally] = None
                            ) -> np.ndarray:
         """One shared N-set per *tile* of ``tile`` consecutive windows,
         broadcast to every window of the tile -> (S, L, N).
@@ -97,10 +118,11 @@ class NegativeSampler:
         holds for every window and the tile scheduler never sees a
         target-as-negative collision.
 
-        `rng` overrides the sampler's stream (see :meth:`sample_batch`).
+        `rng` and `tally` as in :meth:`sample_batch`.
         """
         if rng is None:
             rng = self.rng
+        tally = tally if tally is not None else DrawTally()
         S, L = targets.shape
         nt = -(-L // tile)
         Lp = nt * tile
@@ -110,12 +132,14 @@ class NegativeSampler:
             tg[np.arange(Lp)[None, :] >= np.asarray(lengths)[:, None]] = -1
         tg = tg.reshape(S, nt, tile)
         negs = self.table.sample((S, nt, n_neg), rng).astype(np.int32)
+        tally.drew(negs)
         for _ in range(16):
             bad = self._tile_conflicts(tg, negs)
             if not bad.any():
                 break
             resampled = self.table.sample(negs.shape,
                                           rng).astype(np.int32)
+            tally.drew(resampled)
             negs = np.where(bad, resampled, negs)
         bad = self._tile_conflicts(tg, negs)
         # deterministic fallback: each pass advances every conflicted slot,

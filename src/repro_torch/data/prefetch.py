@@ -65,7 +65,6 @@ import logging
 import multiprocessing
 import queue
 import threading
-import time
 from concurrent.futures import (BrokenExecutor, CancelledError, Executor,
                                 Future, ProcessPoolExecutor)
 from concurrent.futures import TimeoutError as FutureTimeout
@@ -356,10 +355,12 @@ class AsyncBatchingPipeline(BatchingPipeline):
                 epoch: Optional[int] = None,
                 skip_batches: int = 0) -> Iterator[Batch]:
         """Same contract (and same bits) as the synchronous ``batches()``;
-        production runs ahead on the worker pool, bounded by ``depth``."""
+        production runs ahead on the worker pool, bounded by ``depth``.
+        Starting the pool and the producer is the span ``w2v.epoch.open``,
+        the ``finally`` that stops them ``w2v.epoch.close``; the producer's
+        wait for a free slot is ``w2v.backpressure``."""
         epoch = self._resolve_epoch(epoch)
-        self._executor = self._make_executor()
-        self._warm(self._executor)  # worker spawn/init is setup, not steady
+        spans = self.spans
         slots = threading.BoundedSemaphore(self.depth)
         out: "queue.Queue[object]" = queue.Queue()
         stop = threading.Event()
@@ -368,14 +369,13 @@ class AsyncBatchingPipeline(BatchingPipeline):
 
         def produce() -> None:
             try:
-                # stats are wall-based here (production is concurrent);
-                # timed=False keeps the sync per-stage deltas out of them
-                for packed in self._packed(pad_len, epoch, timed=False):
+                for packed in self._packed(pad_len, epoch):
                     if packed.index < skip_batches:
                         continue
-                    while not slots.acquire(timeout=0.05):   # backpressure
-                        if stop.is_set():
-                            return
+                    with spans.span("w2v.backpressure", packed):
+                        while not slots.acquire(timeout=0.05):
+                            if stop.is_set():
+                                return
                     if stop.is_set():
                         return
                     with lock:
@@ -389,11 +389,11 @@ class AsyncBatchingPipeline(BatchingPipeline):
 
         producer = threading.Thread(target=produce, name="w2v-producer",
                                     daemon=True)
-        self._producer = producer
-        wall0 = time.perf_counter()
-        stats_base = self.stats.seconds
-        idle = 0.0   # suspended-in-consumer time while the pipeline was idle
-        producer.start()
+        with spans.span("w2v.epoch.open"):
+            self._executor = self._make_executor()
+            self._warm(self._executor)  # worker spawn/init is setup
+            self._producer = producer
+            producer.start()
         try:
             while True:
                 try:
@@ -413,41 +413,31 @@ class AsyncBatchingPipeline(BatchingPipeline):
                 batch = self._result_healing(item)
                 with lock:
                     in_flight[0] -= 1
-                    pending = in_flight[0]
                 self.ready_depth = self._ready_depth(out)
                 slots.release()
                 self.prefetch.depth_samples.append(self.ready_depth)
-                self.stats.words += batch.n_words
-                # steady-state clock (BatchingStats contract): wall time
-                # since the first production activity, minus stretches the
-                # generator sat suspended in the consumer while the whole
-                # pipeline was drained-and-waiting (backpressured) — those
-                # are consumer time, not batching time
-                self.stats.seconds = (stats_base
-                                      + (time.perf_counter() - wall0) - idle)
-                pipeline_idle = self.ready_depth >= pending
-                t_yield = time.perf_counter()
+                self._took(batch)
                 yield batch
-                if pipeline_idle:
-                    idle += time.perf_counter() - t_yield
         finally:
-            stop.set()
-            # drain queued work so shutdown never deadlocks on
-            # cancelled-but-queued tasks
-            while True:
-                try:
-                    item = out.get_nowait()
-                except queue.Empty:
-                    break
-                if isinstance(item, _Pending):
-                    item.future.cancel()
-            producer.join(timeout=10.0)
-            # self._executor, not a local: healing may have replaced it; a
-            # pool that lost a worker since may never finish shutting down
-            if self._lost_worker():
-                self._discard(self._executor)
-            else:
-                self._executor.shutdown(wait=True, cancel_futures=True)
+            with spans.span("w2v.epoch.close"):
+                stop.set()
+                # drain queued work so shutdown never deadlocks on
+                # cancelled-but-queued tasks
+                while True:
+                    try:
+                        item = out.get_nowait()
+                    except queue.Empty:
+                        break
+                    if isinstance(item, _Pending):
+                        item.future.cancel()
+                producer.join(timeout=10.0)
+                # self._executor, not a local: healing may have replaced
+                # it; a pool that lost a worker since may never finish
+                # shutting down
+                if self._lost_worker():
+                    self._discard(self._executor)
+                else:
+                    self._executor.shutdown(wait=True, cancel_futures=True)
 
     @staticmethod
     def _ready_depth(out: "queue.Queue[object]") -> int:

@@ -154,7 +154,7 @@ def train_rank(mesh, args) -> int:
     steps = max(1, trainer.state.batches_seen - (trainer.resumed_step or 0))
     say(f"throughput: {trainer.words_per_sec:,.0f} words/sec "
         f"({trainer.state.words_seen:,} words) "
-        f"device_busy_frac={trainer.device_busy_frac:.3f} "
+        f"pipeline_wait_frac={trainer.pipeline_wait_frac:.3f} "
         f"host_batching_s_per_step={pipe.stats.seconds / steps:.4f} "
         f"host_wait_s_per_step={trainer.fetch_seconds / steps:.4f}")
     # bit-exactness witness: identical configs print identical digests,

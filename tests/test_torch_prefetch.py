@@ -225,17 +225,29 @@ def test_dead_producer_surfaces_as_pipeline_fault(monkeypatch):
 
 
 def test_stats_clock_is_wall_based_steady_state():
-    """The async clock runs from the first production activity: pipeline
-    construction never counts, and it never exceeds the consumer's
-    wall time."""
+    """``BatchingStats`` means the same in both pipelines: ``seconds`` is
+    the taken batches' produce and finalize busy seconds, summed from
+    their counters (never the consumer's wall time, which here includes a
+    stall in the consumer), and the words are the batches' words, equal
+    to the synchronous pipeline's."""
     pipe = _async(_corpus(), "T1", 2)
-    t0 = time.perf_counter()
-    batches = list(pipe.batches(pad_len=32, epoch=0))
-    consumed = time.perf_counter() - t0
+    batches = []
+    for b in pipe.batches(pad_len=32, epoch=0):
+        batches.append(b)
+        time.sleep(0.02)                       # the consumer's own time
     assert batches
-    assert 0 < pipe.stats.seconds <= consumed
+    busy = [b.counters.produce_seconds + b.counters.finalize_seconds
+            for b in batches]
+    assert all(t > 0 for t in busy)
+    assert pipe.stats.seconds == pytest.approx(sum(busy), rel=1e-12)
     assert pipe.stats.words == sum(b.n_words for b in batches)
     assert np.isfinite(pipe.stats.words_per_sec)
+    sync = BatchingPipeline(_corpus(), smoke(**_kw("T1")))
+    want = list(sync.batches(pad_len=32, epoch=0))
+    assert sync.stats.seconds == pytest.approx(
+        sum(b.counters.produce_seconds + b.counters.finalize_seconds
+            for b in want), rel=1e-12)
+    assert pipe.stats.words == sync.stats.words
 
 
 def test_process_pool_that_cannot_start_raises():

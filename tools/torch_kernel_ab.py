@@ -13,9 +13,10 @@ corpus of ``chip_smoke.py``):
 
 * the T=1 and the T=8 ``auto`` trainers (``TrainSession`` on the
   synchronous pipeline: K2, then K3): seconds per step, words per second,
-  host batching seconds per step (the pipeline's clock), the step loop's
-  wait on the host per step (``fetch_seconds``: batching plus the lift
-  onto the card) and ``device_busy_frac``, over ``--batches`` batches;
+  host batching seconds per step (the pipeline's busy seconds), the step
+  loop's wait on the host per step (``fetch_seconds``: batching plus the
+  lift onto the card) and ``pipeline_wait_frac``, over ``--batches``
+  batches;
 * K1 (``cuda``) and K2 (``cuda_pipelined``) on the trainer's first batch,
   K3 (``cuda_tiled``, T=8, G=4) on the T=8 pipeline's first batch and K4
   (the split-table ``update_fused``) on the one-shard vocab-sharded
@@ -97,7 +98,8 @@ def measure(tree: str, S: int, batches: int, seed: int, reps: int) -> dict:
                     "host_batching_s_per_step":
                         sess.pipeline.stats.seconds / n,
                     "host_wait_s_per_step": sess.fetch_seconds / n,
-                    "device_busy_frac": sess.device_busy_frac}
+                    "pipeline_wait_frac": getattr(
+                        sess, "pipeline_wait_frac", None)}
 
     def tables(rows, d):
         gen = torch.Generator(device="cuda").manual_seed(0)

@@ -1,0 +1,5 @@
+"""``slot_wait_ms_per_step.train``, read in the 1bw training cell:
+it moves that cell's rate, ``words_per_s.1bw``."""
+from w2vbench import manifest
+
+read = manifest.reader("slot_wait_ms_per_step.train")
